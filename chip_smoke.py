@@ -17,6 +17,13 @@ Phases, each printing one JSON line:
            from disk and builds the k-mer index as a fresh CLI run does;
            reads/s with and without that load, device-step share, kernel
            launch counts, record counts, accuracy vs truth
+  var      one 1 Mbp contig with a diploid sample (SNVs 0.3 %, indels
+           0.05 %) at 30x (100,000 pairs × 150 bp) aligned by the port's
+           CLI on cuda, then ``var`` through the CLI on cuda (ten 100 kb
+           windows): wall, Mbp/s, reads/s, genotyping and haplotype-scan
+           counters and times, recall/precision against the truth (>= 0.92
+           each), and runs over the first 200 kb (four windows) on cpu, on
+           cuda and on cuda with 4 threads that must give the same records
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
@@ -39,6 +46,8 @@ INT32_LANES_PER_SM = 64            # Hopper SM: 64 INT32 units per clock
 GENOME = (2_500_000, 2_000_000, 1_500_000)   # contig lengths, 6 Mbp
 PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
+VAR_BP, VAR_PAIRS = 1_000_000, 100_000   # 30x of 2 × 150 bp
+VAR_PARITY_BP = 200_000
 
 
 def emit(obj) -> None:
@@ -240,6 +249,143 @@ def phase_align(work, fasta, genome, args):
     return launches
 
 
+def _vcf_mismatch(a, b):
+    """None when two var record lists agree on CHROM, POS, REF, ALT,
+    FILTER, GT, DP, RO, AO, QR, QA, RPL, RPR, SAF, SAR, with GQ within 1
+    and QUAL and GL within 0.01 (their last printed digit); else why."""
+    if len(a) != len(b):
+        return f"{len(a)} vs {len(b)} records"
+    close = lambda x, y: abs(x - y) <= 0.0100001
+    for x, y in zip(a, b):
+        where = f"{x.chrom}:{x.pos}"
+        if (x.chrom, x.pos, x.ref, x.alt, x.filter) != (
+                y.chrom, y.pos, y.ref, y.alt, y.filter):
+            return f"{where}: site differs"
+        if any(x.info[k] != y.info[k]
+               for k in ("DP", "RO", "AO", "RPL", "RPR", "SAF", "SAR")):
+            return f"{where}: INFO counts differ"
+        if not close(x.qual or 0.0, y.qual or 0.0):
+            return f"{where}: QUAL {x.qual} vs {y.qual}"
+        for sx, sy in zip(x.samples, y.samples):
+            if any(sx[k] != sy[k]
+                   for k in ("GT", "DP", "RO", "AO", "QR", "QA")):
+                return f"{where}: FORMAT counts differ"
+            if abs(int(sx["GQ"]) - int(sy["GQ"])) > 1:
+                return f"{where}: GQ {sx['GQ']} vs {sy['GQ']}"
+            gx = [float(v) for v in str(sx["GL"]).split(",")]
+            gy = [float(v) for v in str(sy["GL"]).split(",")]
+            if len(gx) != len(gy) or not all(map(close, gx, gy)):
+                return f"{where}: GL {sx['GL']} vs {sy['GL']}"
+    return None
+
+
+def phase_var(work, args):
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.formats.fasta import decode_bases
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.utils import sim
+    from speedseq_tpu_torch.utils.metrics import metrics
+    from speedseq_tpu_torch.var.engine import VarConfig, run_var
+    from speedseq_tpu_torch.var.normalize import left_align, primitives
+
+    rng = np.random.default_rng(args.seed + 200)
+    g = rng.integers(0, 4, VAR_BP).astype(np.uint8)
+    hap, variants, coord = sim.mutate(g, rng, snv_rate=0.003,
+                                      indel_rate=0.0005)
+    names, s1, q1, s2, q2, _ = sim.simulate_pairs(
+        g, VAR_PAIRS, read_len=150, insert_mean=320.0, insert_std=50.0,
+        seed=args.seed + 201, diploid_genome=hap, coord_map=coord)
+    fasta = os.path.join(work, "var.fa")
+    seq = decode_bases(g).decode()
+    with open(fasta, "w") as fh:
+        fh.write(">chrV\n" + "\n".join(seq[i:i + 60]
+                                       for i in range(0, len(seq), 60)) + "\n")
+    f1, f2 = os.path.join(work, "v1.fq"), os.path.join(work, "v2.fq")
+    sim.to_fastq(f1, f2, names, s1, q1, s2, q2)
+    aln = os.path.join(work, "var_aln")
+    t0 = time.perf_counter()
+    rc = cli.main(["align", "-R", "@RG\\tID:var\\tSM:var", "-o", aln,
+                   "--batch-size", str(BATCH), "--device", "cuda", fasta,
+                   f1, f2])
+    align_s = time.perf_counter() - t0
+    check(rc == 0, f"align CLI for the var input returned {rc}")
+    bam = aln + ".bam"
+
+    out = os.path.join(work, "var")
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["var", "--device", "cuda", "-o", out, fasta, bam])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    check(rc == 0, f"var CLI returned {rc}")
+    check(snap.get("var.windows_failed", 0) == 0, "a var window failed")
+    check(snap.get("var.hap_scan_lanes.cuda", 0) > 0,
+          "the haplotype scan did not run on cuda")
+    check(snap.get("var.genotype_programs.cuda", 0) > 0,
+          "the genotyping program did not run on cuda")
+    _, recs = read_vcf(out + ".vcf.gz")
+    truth = {left_align(g, p, r, a) for p, r, a in variants}
+    called = {pr for r in recs for a in r.alt
+              for pr in primitives(r.pos, r.ref, a)}
+    tp = len(called & truth)
+    recall, precision = tp / len(truth), tp / max(1, len(called))
+
+    # parity region: four windows, so -t 4 runs the haplotype scan on the
+    # card from four threads at once
+    bed = os.path.join(work, "first.bed")
+    step = VAR_PARITY_BP // 4
+    with open(bed, "w") as fh:
+        fh.writelines(f"chrV\t{a}\t{a + step}\n"
+                      for a in range(0, VAR_PARITY_BP, step))
+    par, raw = {}, {}
+    for name, dev, threads in (("cpu", "cpu", 1), ("cuda", "cuda", 1),
+                               ("cuda_t4", "cuda", 4)):
+        path = os.path.join(work, f"par_{name}.vcf.gz")
+        t0 = time.perf_counter()
+        run_var(fasta, [bam], path, windows_bed=bed, device=dev,
+                config=VarConfig(threads=threads))
+        par[name] = (read_vcf(path)[1], time.perf_counter() - t0)
+        with open(path, "rb") as fh:
+            raw[name] = fh.read()
+    why = _vcf_mismatch(par["cpu"][0], par["cuda"][0])
+
+    emit({"phase": "var", "contig_bp": VAR_BP, "pairs": VAR_PAIRS,
+          "read_len": 150, "coverage": 2 * 150 * VAR_PAIRS / VAR_BP,
+          "align_s": align_s, "wall_s": wall,
+          "mbp_per_s": VAR_BP / 1e6 / wall,
+          "reads_per_s": 2 * VAR_PAIRS / wall,
+          "pileup_s": snap.get("time.var.pileup", 0.0),
+          "loci_s": snap.get("time.var.loci", 0.0),
+          "emit_s": snap.get("time.var.emit", 0.0),
+          "genotype_s": snap.get("time.var.genotype", 0.0),
+          "hap_scan_calls": snap.get("var.hap_scan_calls.cuda", 0),
+          "hap_scan_lanes": snap.get("var.hap_scan_lanes.cuda", 0),
+          "hap_scan_s": snap.get("time.var.hap_scan", 0.0),
+          "genotype_programs": snap.get("var.genotype_programs.cuda", 0),
+          "windows": snap.get("var.windows", 0),
+          "sites": snap.get("var.sites", 0), "records": len(recs),
+          "truth_primitives": len(truth), "called_primitives": len(called),
+          "recall": recall, "precision": precision,
+          "parity_bp": VAR_PARITY_BP, "parity_records": len(par["cuda"][0]),
+          "parity_cpu_s": par["cpu"][1], "parity_cuda_s": par["cuda"][1],
+          "parity_cuda_t4_s": par["cuda_t4"][1],
+          "parity_ok": why is None,
+          "threads_byte_equal": raw["cuda_t4"] == raw["cuda"],
+          "metrics": snap,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(recall >= 0.92, f"var recall {recall:.4f} < 0.92")
+    check(precision >= 0.92, f"var precision {precision:.4f} < 0.92")
+    check(len(par["cuda"][0]) > 0, "no records in the parity region")
+    check(why is None, f"var cpu vs cuda: {why}")
+    check(raw["cuda_t4"] == raw["cuda"], "var -t 4 on cuda differs from -t 1")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -283,6 +429,7 @@ def main() -> int:
         synth.write_fasta(fasta, genome)
         phase_parity(work, fasta, genome, args)
         launches = phase_align(work, fasta, genome, args)
+        phase_var(work, args)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,8 +1,9 @@
 """Command-line interface of the port: the speedseq driver surface.
 
-Only ``align`` is ported; its flags are those of the JAX package's CLI
-(which mirror bin/speedseq:235-295) plus ``--device``.  The other
-subcommands say so and exit 2.
+``align`` and ``var`` are ported; their flags are those of the JAX
+package's CLI (which mirror bin/speedseq:235-295 and :540-590) plus
+``--device``.  The other subcommands, and var's ``--gff`` and ``-A``, say
+they are not ported and exit 2.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import os
 import sys
 from typing import List, Optional
 
-NOT_PORTED = ("realign", "var", "somatic", "sv")
+NOT_PORTED = ("realign", "somatic", "sv")
 
 
 def _kconfig(args):
@@ -72,6 +73,46 @@ def cmd_align(args) -> int:
     return 0
 
 
+def _resolve_windows(w, kcfg):
+    """-w 'default' resolves the shipped depth-balanced window BED
+    (ceph18.b37.include.2014-01-15.bed, README.md:153-155) via the
+    config's annotations_dir."""
+    if w == "default":
+        p = kcfg.default_windows()
+        if p is None:
+            raise SystemExit(
+                "speedseq_tpu_torch: no default windows BED found under "
+                f"{kcfg.annotations_dir} (set annotations_dir via -K)")
+        return p
+    return w or kcfg.windows_bed
+
+
+def cmd_var(args) -> int:
+    from .var.engine import VarConfig, run_var
+
+    for flag, given in (("--gff", args.gff), ("-A", args.A)):
+        if given:
+            print(f"speedseq_tpu_torch: var {flag} is not ported yet "
+                  "(use python -m speedseq_tpu)", file=sys.stderr)
+            return 2
+    kcfg = _kconfig(args)
+    out = args.o or os.path.basename(args.bams[0]).rsplit(".", 1)[0]
+    output = out + ".vcf.gz"
+    run_var(
+        args.reference,
+        args.bams,
+        output,
+        windows_bed=_resolve_windows(args.w, kcfg),
+        config=VarConfig(
+            min_qual=args.q,
+            threads=args.t if args.t is not None else kcfg.threads,
+            verbose=args.v),
+        device=args.device,
+    )
+    print(output)
+    return 0
+
+
 def cmd_not_ported(args) -> int:
     print(f"speedseq_tpu_torch: '{args.command}' is not ported yet "
           "(use python -m speedseq_tpu)", file=sys.stderr)
@@ -81,7 +122,8 @@ def cmd_not_ported(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="speedseq_tpu_torch",
-        description="PyTorch/CUDA port of speedseq_tpu (align ported)",
+        description="PyTorch/CUDA port of speedseq_tpu (align and var "
+        "ported)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -110,6 +152,22 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("fastq1")
     a.add_argument("fastq2", nargs="?")
     a.set_defaults(func=cmd_align)
+
+    v = sub.add_parser("var", help="call SNVs/indels (FreeBayes-equivalent)")
+    v.add_argument("-o", metavar="STR", help="output prefix")
+    v.add_argument("-w", metavar="FILE", help="BED of genomic windows ('default' = shipped depth-balanced BED)")
+    v.add_argument("-q", type=float, default=1.0, metavar="FLOAT", help="min QUAL [1]")
+    v.add_argument("-t", type=int, default=None, metavar="INT",
+                   help="threads for the per-window host phase [config or 1]")
+    v.add_argument("-K", metavar="FILE", help="speedseq.config path")
+    v.add_argument("-v", action="store_true", help="verbose")
+    v.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    v.add_argument("--gff", metavar="FILE", help="GFF3/GTF annotation (not ported yet)")
+    v.add_argument("-A", action="store_true", help="annotate with VEP (not ported yet)")
+    v.add_argument("reference")
+    v.add_argument("bams", nargs="+")
+    v.set_defaults(func=cmd_var)
 
     for name in NOT_PORTED:
         s = sub.add_parser(name, help="not ported yet", add_help=False)
