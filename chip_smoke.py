@@ -5,8 +5,9 @@
 Phases, each printing one JSON line:
 
   device   the card (nvidia-smi name, power limit, max SM clock)
-  build    nvcc build of the kernels from the checkout, with ptxas report
-  kernels  each CUDA kernel against its plain PyTorch twin on the card at
+  build    nvcc build of the kernels from the checkout (one nvcc per source,
+           all started together), with ptxas reports
+  kernels  each SW kernel against its plain PyTorch twin on the card at
            production shapes (bit-equal), with kernel / twin / bound times
   parity   2,048 pairs through align_fastq on cpu and on cuda: the BAM
            triples must be record-equal
@@ -24,6 +25,19 @@ Phases, each printing one JSON line:
            counters and times, recall/precision against the truth (>= 0.92
            each), and runs over the first 200 kb (four windows) on cpu, on
            cuda and on cuda with 4 threads that must give the same records
+  sv       two contigs (1.5 + 0.5 Mbp) whose sample carries 8 deletions,
+           4 tandem duplications and 4 inversions (all heterozygous) and a
+           reciprocal translocation, 200,000 pairs × 150 bp (30x) aligned
+           by the port's CLI on cuda, then ``sv -g -d -P -R`` through the
+           CLI on cuda: wall, Mbp/s, reads/s, per-stage timers, device
+           counters, recall/precision against the planted events (>= 0.9
+           each), genotypes and CN of the matched calls, and cpu/cuda
+           parity of the records and readdepth calls over the same BAMs
+  kernels  then the sv_cluster sweep kernel against its twin (bit-equal) at
+           the sv phase's evidence and at 1,048,576 rows in 16 groups
+  combine  the cluster sweep + curve combination (``cluster_and_combine``)
+           at one pile of SV_PILE members on cuda, timed, against cpu: its
+           member-rank loop runs one step per member
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
@@ -48,6 +62,9 @@ PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
 VAR_BP, VAR_PAIRS = 1_000_000, 100_000   # 30x of 2 × 150 bp
 VAR_PARITY_BP = 200_000
+SV_BP, SV_PAIRS = (1_500_000, 500_000), 200_000   # 30x of 2 × 150 bp
+SV_SLACK = 150                     # breakpoint bar of tests/test_sv.py:126
+SV_PILE = 4_096                    # members of the combine phase's cluster
 
 
 def emit(obj) -> None:
@@ -386,6 +403,329 @@ def phase_var(work, args):
     check(raw["cuda_t4"] == raw["cuda"], "var -t 4 on cuda differs from -t 1")
 
 
+def _sv_mismatch(a, b):
+    """None when two sv record lists agree under the rules of
+    tests/test_torch_sv.py (sites, INFO and FORMAT counts equal; PRPOS and
+    PREND within atol 2e-5 + one unit of their third digit; GQ within 1,
+    SQ within 0.05, GL within 1); else why."""
+    if len(a) != len(b):
+        return f"{len(a)} vs {len(b)} records"
+    fl = lambda v: [float(x) for x in str(v).split(",")]
+    for x, y in zip(a, b):
+        where = f"{x.chrom}:{x.pos}"
+        if (x.chrom, x.pos, x.id, x.alt) != (y.chrom, y.pos, y.id, y.alt):
+            return f"{where}: site differs"
+        for k in ("SVTYPE", "SVLEN", "END", "STRANDS", "CIPOS", "CIEND",
+                  "CIPOS95", "CIEND95", "SU", "PE", "SR", "IMPRECISE",
+                  "MATEID", "EVENT"):
+            if x.info.get(k) != y.info.get(k):
+                return f"{where}: INFO {k} {x.info.get(k)} vs {y.info.get(k)}"
+        for k in ("PRPOS", "PREND"):
+            p, q = fl(x.info[k]), fl(y.info[k])
+            if len(p) != len(q) or any(abs(u - v) > 2e-5 + 1e-2 * abs(v)
+                                       for u, v in zip(p, q)):
+                return f"{where}: {k} differs"
+        for sx, sy in zip(x.samples, y.samples):
+            for k in ("GT", "SU", "PE", "SR", "DP", "RO", "AO", "RS", "AS",
+                      "RP", "AP", "AB", "CN"):
+                if sx.get(k) != sy.get(k):
+                    return f"{where}: FORMAT {k} {sx.get(k)} vs {sy.get(k)}"
+            if (abs(int(sx["GQ"]) - int(sy["GQ"])) > 1
+                    or abs(float(sx["SQ"]) - float(sy["SQ"])) > 0.05
+                    or max(abs(u - v) for u, v in zip(fl(sx["GL"]),
+                                                      fl(sy["GL"]))) > 1):
+                return f"{where}: GQ/SQ/GL {sx} vs {sy}"
+    return None
+
+
+def _readdepth_mismatch(pa, pb):
+    """None when two readdepth.txt files hold the same calls (kind and
+    region) with norm_rd within rtol 1e-4."""
+    rows = []
+    for p in (pa, pb):
+        with open(p) as fh:
+            rows.append([l.split("\t") for l in fh.read().splitlines()])
+    if len(rows[0]) != len(rows[1]):
+        return f"{len(rows[0])} vs {len(rows[1])} readdepth calls"
+    for x, y in zip(*rows):
+        if x[:3] != y[:3] or abs(float(x[3]) - float(y[3])) > 1e-4 * abs(
+                float(y[3])):
+            return f"readdepth {x[:4]} vs {y[:4]}"
+    return None
+
+
+def _sv_truth_match(recs, events, ta, tb, names):
+    """Match sv records to the planted events.  Returns (per-event matched
+    flags, per-junction matched flags, calls as (kind, matched, GT, CN))."""
+    kinds = {}
+    calls = []
+    bnd = {}
+    for r in recs:
+        t = r.info["SVTYPE"]
+        if t == "BND":
+            bnd.setdefault(r.info["EVENT"], []).append(r)
+            continue
+        end = int(r.info["END"])
+        hit = [i for i, (k, tid, s, ln) in enumerate(events)
+               if k == t and names[tid] == r.chrom
+               and abs(r.pos - s) <= SV_SLACK
+               and abs(end - (s + ln)) <= SV_SLACK]
+        for i in hit:
+            kinds[i] = True
+        calls.append((t, bool(hit), r.samples[0].get("GT"),
+                      r.samples[0].get("CN")))
+    junctions = set()
+    for ev_recs in bnd.values():
+        r = ev_recs[0]
+        at = {r.chrom: r.pos}
+        mate = r.alt[0].strip("N[]").split(":")
+        at[mate[0]] = int(mate[1]) - 1
+        hit = (names[0] in at and names[1] in at
+               and abs(at[names[0]] - ta) <= SV_SLACK
+               and abs(at[names[1]] - tb) <= SV_SLACK)
+        if hit:
+            junctions.add(r.info["STRANDS"].split(":")[0])
+        calls.append(("BND", hit, r.samples[0].get("GT"), None))
+    return ([i in kinds for i in range(len(events))], junctions, calls)
+
+
+def phase_sv(work, args):
+    """sv at 2 Mbp × 30x through the CLI on cuda; returns (the sweep
+    kernel's launches in that run, the run's sorted sweep inputs)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.formats.fasta import decode_bases
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.ops import sv_cluster
+    from speedseq_tpu_torch.sv.cluster import evidence_columns
+    from speedseq_tpu_torch.sv.engine import SVConfig, SVSample, run_sv
+    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
+    from speedseq_tpu_torch.utils import sim, sv_cases
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(args.seed + 300)
+    contigs, alts, events, (ta, tb) = sv_cases.plant_svs(SV_BP, rng)
+    names = ["chrA", "chrB"]
+    fasta = os.path.join(work, "sv.fa")
+    with open(fasta, "w") as fh:
+        for nm, c in zip(names, contigs):
+            seq = decode_bases(c).decode()
+            fh.write(f">{nm}\n" + "\n".join(seq[i:i + 60]
+                                            for i in range(0, len(seq), 60))
+                     + "\n")
+    total_bp = sum(SV_BP)
+    # half the pairs from each haplotype, each of its contigs in
+    # proportion to length (the alternates are chimeric, so their lengths
+    # differ from the reference contigs'): 15x per haplotype everywhere
+    reads = [[], [], [], [], []]
+    for h, seq in enumerate(contigs + alts):
+        hap = contigs if h < 2 else alts
+        n_h = SV_PAIRS // 2 * len(seq) // sum(len(s) for s in hap)
+        out = sim.simulate_pairs(
+            seq, n_h, read_len=150, insert_mean=320.0, insert_std=50.0,
+            seed=args.seed + 301 + h, name_prefix=f"h{h}")
+        for k in range(5):
+            reads[k].append(out[k])
+    f1, f2 = os.path.join(work, "sv1.fq"), os.path.join(work, "sv2.fq")
+    sim.to_fastq(f1, f2, sum(reads[0], []),
+                 *(np.concatenate(r) for r in reads[1:]))
+    n_pairs = sum(len(r) for r in reads[0])
+    aln = os.path.join(work, "sv_aln")
+    t0 = time.perf_counter()
+    rc = cli.main(["align", "-R", "@RG\\tID:sv\\tSM:sv", "-o", aln,
+                   "--batch-size", str(BATCH), "--device", "cuda", fasta,
+                   f1, f2])
+    align_s = time.perf_counter() - t0
+    check(rc == 0, f"align CLI for the sv input returned {rc}")
+    bam = aln + ".bam"
+
+    out = os.path.join(work, "sv")
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sv_cluster.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["sv", "--device", "cuda", "-g", "-d", "-P", "-R", fasta,
+                   "-B", bam, "-o", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sv_cluster.LAUNCHES)
+    snap = metrics.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"sv CLI returned {rc}")
+    for k in ("cluster_scans", "svtyper_programs", "depth_programs"):
+        check(snap.get(f"sv.{k}.cuda", 0) > 0, f"sv.{k} did not run on cuda")
+    check(launches["sv_cluster"] > 0, "sv_cluster was not launched on the "
+          "main path")
+    _, recs = read_vcf(out + ".sv.vcf.gz")
+    ev_hit, junctions, calls = _sv_truth_match(recs, events, ta, tb, names)
+    recall = (sum(ev_hit) + min(len(junctions), 2)) / (len(events) + 2)
+    matched = [c for c in calls if c[1]]
+    precision = len(matched) / max(1, len(calls))
+    nonref = sum(1 for c in matched if c[2] in ("0/1", "1/1"))
+    cn = lambda kind: [float(c[3]) for c in matched if c[0] == kind]
+    med = lambda v: float(np.median(v)) if v else None
+
+    # cpu/cuda parity over the same BAM triple
+    spl, disc = aln + ".splitters.bam", aln + ".discordants.bam"
+    par = {}
+    for dev in ("cpu", "cuda"):
+        path = os.path.join(work, f"svpar_{dev}.sv.vcf.gz")
+        metrics.reset()      # the cuda run's timers: sv once the card is warm
+        t0 = time.perf_counter()
+        run_sv([SVSample("sv", bam, spl, disc)], path,
+               SVConfig(genotype=True, annotate_depth=True, prob_curves=True,
+                        reference=fasta), device=dev)
+        par[dev] = (read_vcf(path)[1], time.perf_counter() - t0,
+                    path[:-7] + ".sv.readdepth.txt")
+    why = (_sv_mismatch(par["cpu"][0], par["cuda"][0])
+           or _readdepth_mismatch(par["cpu"][2], par["cuda"][2]))
+
+    emit({"phase": "sv", "contig_bp": list(SV_BP), "pairs": n_pairs,
+          "read_len": 150, "coverage": 2 * 150 * n_pairs / total_bp,
+          "events": len(events), "translocation": [ta, tb],
+          "align_s": align_s, "wall_s": wall,
+          "mbp_per_s": total_bp / 1e6 / wall,
+          "reads_per_s": 2 * n_pairs / wall,
+          "insert_stats_s": snap.get("time.sv.insert_stats", 0.0),
+          "evidence_s": snap.get("time.sv.evidence", 0.0),
+          "cluster_s": snap.get("time.sv.cluster", 0.0),
+          "cluster_sweep_s": snap.get("time.sv.cluster_sweep", 0.0),
+          "cluster_combine_s": snap.get("time.sv.cluster_combine", 0.0),
+          "svtyper_s": snap.get("time.sv.svtyper", 0.0),
+          "cnv_s": snap.get("time.sv.cnv", 0.0),
+          "emit_s": snap.get("time.sv.emit", 0.0),
+          "evidence_pe": snap.get("sv.evidence.pe", 0),
+          "evidence_sr": snap.get("sv.evidence.sr", 0),
+          "calls": snap.get("sv.calls", 0), "records": len(recs),
+          "launches": launches,
+          "events_found": sum(ev_hit), "junctions_found": sorted(junctions),
+          "recall": recall, "precision": precision,
+          "matched_calls": len(matched), "called": len(calls),
+          "nonref_share": nonref / max(1, len(matched)),
+          "median_cn_del": med(cn("DEL")), "median_cn_dup": med(cn("DUP")),
+          "parity_cpu_s": par["cpu"][1], "parity_cuda_s": par["cuda"][1],
+          "parity_records": len(par["cuda"][0]), "parity_ok": why is None,
+          "metrics": snap, "warm_cuda_metrics": metrics.snapshot(),
+          "max_memory_allocated": peak})
+    check(recall >= 0.9, f"sv recall {recall:.4f} < 0.9")
+    check(precision >= 0.9, f"sv precision {precision:.4f} < 0.9")
+    check(nonref >= 0.9 * len(matched), "under 90 % of matched sv calls "
+          "genotyped non-ref")
+    check(med(cn("DEL")) is not None and med(cn("DEL")) < 1.5,
+          f"median CN over matched deletions {med(cn('DEL'))}")
+    check(med(cn("DUP")) is not None and med(cn("DUP")) > 2.5,
+          f"median CN over matched duplications {med(cn('DUP'))}")
+    check(why is None, f"sv cpu vs cuda: {why}")
+
+    stats = InsertStats.from_bam(bam)
+    ev = collect_evidence([disc], [spl], [stats], ref_names=names)
+    _, gid, s1, l1, _, s2, l2, _ = evidence_columns(ev)
+    cols = tuple(np.asarray(c, np.int32)
+                 for c in (gid, s1, s1 + l1, s2, s2 + l2))
+    return launches, cols
+
+
+def phase_sv_kernel(cols_main, args, clock_hz: float):
+    """The sweep kernel against its twin at the sv phase's evidence and at
+    1,048,576 rows in 16 groups (a genome's row count in the worst case
+    for one thread per group); returns the kernels-line record (at the sv
+    phase's shape, the one the main path gives it)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_cluster
+    from speedseq_tpu_torch.utils import sv_cases
+
+    rec = None
+    for label, cols in (("sv_phase", cols_main),
+                        ("genome", sv_cases.sweep_columns("genome",
+                                                          seed=args.seed))):
+        host = [torch.from_numpy(c) for c in cols]
+        dev = [c.cuda() for c in host]
+        before = sv_cluster.LAUNCHES["sv_cluster"]
+        got = sv_cluster.cluster_scan(*dev).cpu()
+        torch.cuda.synchronize()
+        check(sv_cluster.LAUNCHES["sv_cluster"] == before + 1,
+              "sv_cluster did not launch")
+        # the twin on the card's tensors at the main path's shape; on the
+        # host at the genome's (65,536 row steps of small launches)
+        twin_in = dev if label == "sv_phase" else host
+        t0 = time.perf_counter()
+        want = sv_cluster.cluster_scan_plain(*twin_in).cpu()
+        plain_s = time.perf_counter() - t0
+        max_err = int((got.long() - want.long()).abs().max())
+        check(max_err == 0, f"sv_cluster disagrees with its twin ({label})")
+        ms = cuda_ms(lambda: sv_cluster.cluster_scan(*dev), reps=20)
+        plain_ms = (cuda_ms(lambda: sv_cluster.cluster_scan_plain(*dev),
+                            reps=2, warmup=1)
+                    if label == "sv_phase" else None)
+        n = len(cols[0])
+        seg = np.diff(np.concatenate(
+            [np.flatnonzero(np.r_[True, cols[0][1:] != cols[0][:-1]]), [n]]))
+        nbytes = 4.0 * 6 * n               # five columns read, ids written
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        chain_ms = int(seg.max()) * sv_cluster.CHAIN_OPS_PER_ROW / clock_hz * 1e3
+        bound = max(bytes_ms, chain_ms)
+        emit({"phase": "kernels", "kernel": "sv_cluster", "shape": label,
+              "rows": n, "groups": int(len(seg)),
+              "longest_group": int(seg.max()), "clusters": int(got[-1]) + 1,
+              "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
+              "plain_host_s": plain_s, "bytes": nbytes,
+              "bytes_ms": bytes_ms, "chain_ms": chain_ms, "bound_ms": bound})
+        if label == "sv_phase":
+            rec = {"name": "sv_cluster", "route": "cuda",
+                   "source": "speedseq_tpu_torch/ops/csrc/sv_cluster.cu",
+                   "replaces": "speedseq_tpu/sv/device.py:74",
+                   "launches": 0, "max_abs_err": max_err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": "operations" if chain_ms >= bytes_ms
+                   else "bytes", "library_ms": None}
+    return rec
+
+
+def phase_sv_combine(args) -> None:
+    """``cluster_and_combine`` at one cluster of SV_PILE members, on cuda
+    (timed, after a warm-up at 64 members) and on cpu: the same integers,
+    curves within atol 2e-5."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.sv import device as sd
+    from speedseq_tpu_torch.sv.cluster import evidence_columns
+    from speedseq_tpu_torch.utils import sv_cases
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(args.seed + 400)
+    warm = evidence_columns(sv_cases.pile_evidence(rng, 64))[1:]
+    sd.cluster_and_combine(*warm, 0.0, device="cuda")
+    cols = evidence_columns(sv_cases.pile_evidence(rng, SV_PILE))[1:]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[dev] = sd.cluster_and_combine(*cols, 0.0, device=dev)
+        out[dev + "_s"] = time.perf_counter() - t0
+        out[dev + "_metrics"] = metrics.snapshot()
+    g, c = out["cuda"], out["cpu"]
+    check(g.n_clusters == c.n_clusters == 1,
+          f"pile of {SV_PILE} gave {g.n_clusters} clusters")
+    same = all(np.array_equal(a[k], b[k]) for a, b in
+               ((g.pos, c.pos), (g.ci, c.ci), (g.ci95, c.ci95), (g.nz, c.nz))
+               for k in (0, 1))
+    err = max(float(np.abs(g.prob[k] - c.prob[k]).max()) for k in (0, 1))
+    emit({"phase": "combine", "members": SV_PILE, "rank_steps": 2 * SV_PILE,
+          "cuda_s": out["cuda_s"], "cpu_s": out["cpu_s"],
+          "cuda_metrics": out["cuda_metrics"],
+          "cpu_metrics": out["cpu_metrics"], "ints_equal": same,
+          "prob_max_abs_err": err})
+    check(same and err <= 2e-5, "cluster_and_combine: cuda and cpu disagree "
+          f"on the pile (ints equal {same}, prob err {err})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -398,7 +738,9 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from speedseq_tpu_torch.ops import sw_banded
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speedseq_tpu_torch.ops import sv_cluster, sw_banded
     from speedseq_tpu_torch.utils import synth
 
     smi = nvidia_smi("name,power.limit")
@@ -411,12 +753,17 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    sw_banded.build(verbose_ptxas=True)
-    ptxas = sw_banded.BUILD_INFO.get("ptxas", "")
+    mods = (sw_banded, sv_cluster)
+    with ThreadPoolExecutor(len(mods)) as pool:    # one nvcc per source
+        list(pool.map(lambda m: m.build(verbose_ptxas=True), mods))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "command": sw_banded.BUILD_INFO.get("command"),
-          "ptxas": [l.strip() for l in ptxas.splitlines()
-                    if "registers" in l or "spill" in l or "Compiling" in l]})
+          "sources": {m.__name__.rsplit(".", 1)[1]: {
+              "seconds": m.BUILD_INFO.get("seconds"),
+              "command": m.BUILD_INFO.get("command"),
+              "ptxas": [l.strip() for l in
+                        m.BUILD_INFO.get("ptxas", "").splitlines()
+                        if "registers" in l or "spill" in l
+                        or "Compiling" in l]} for m in mods}})
 
     records = phase_kernels(args, clock_mhz * 1e6, props.multi_processor_count)
 
@@ -430,8 +777,12 @@ def main() -> int:
         phase_parity(work, fasta, genome, args)
         launches = phase_align(work, fasta, genome, args)
         phase_var(work, args)
+        sv_launches, sv_cols = phase_sv(work, args)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    records["sv_cluster"] = phase_sv_kernel(sv_cols, args, clock_mhz * 1e6)
+    launches.update(sv_launches)
+    phase_sv_combine(args)
 
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -29,14 +29,13 @@ bits 12-18 run mismatches (both saturating at 127).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
-import time
 from typing import Optional
 
 import torch
+
+from .nvcc_build import CSRC_DIR, build_library
 
 BAND = 128          # diagonal band width (c = j - i)
 MAX_DEL = 64        # deletion prefix-max window (6 doubling steps)
@@ -56,13 +55,7 @@ OPS_PER_CELL_CIGAR = 42
 # launches of each kernel since the last reset (plain-twin calls not counted)
 LAUNCHES = {"sw_cigar": 0, "sw_score": 0}
 
-_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "sw_banded.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+SOURCE = os.path.join(CSRC_DIR, "sw_banded.cu")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -74,32 +67,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    return cand if os.path.exists(cand) else "nvcc"
-
-
 def build(verbose_ptxas: bool = False) -> str:
     """Compile csrc/sw_banded.cu (once per source hash); returns the .so
     path.  Records seconds and the ptxas report in BUILD_INFO."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libsw_banded-{digest}.so")
-    if os.path.exists(so) and not verbose_ptxas:
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose_ptxas else [])
-    cmd += [SOURCE, "-o", tmp]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=res.stderr, command=" ".join(cmd))
-    return so
+    return build_library(SOURCE, BUILD_INFO, verbose_ptxas)
 
 
 def _load() -> ctypes.CDLL:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain twins, and var's two torch
-programs on cuda against cpu, on the card (marked ``gpu``; they skip
+"""The port's CUDA kernels against their plain twins, and var's and sv's
+torch programs on cuda against cpu, on the card (marked ``gpu``; they skip
 without a CUDA device and count as not run).  Run on a
 machine with a card (the conftest imports jax, so leave it out there):
 python -m pytest --noconftest -m gpu tests/test_torch_gpu.py"""
@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from speedseq_tpu_torch.ops import sw_banded
+from speedseq_tpu_torch.ops import sv_cluster, sw_banded
+from speedseq_tpu_torch.utils import sv_cases
 from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
 
 pytestmark = pytest.mark.gpu
@@ -107,3 +108,102 @@ def test_genotype_sites_cuda_matches_cpu(n_samples, pooled):
         assert np.abs(gpu.joint.gq.astype(int) - cpu.joint.gq).max() <= 1
         np.testing.assert_allclose(gpu.joint.qual, cpu.joint.qual,
                                    atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("shape", sv_cases.SWEEP_SHAPES)
+def test_sv_cluster_kernel_matches_twin(shape):
+    _need_card()
+    cols = [torch.from_numpy(c) for c in sv_cases.sweep_columns(shape, seed=3)]
+    before = sv_cluster.LAUNCHES["sv_cluster"]
+    got = sv_cluster.cluster_scan(*(c.cuda() for c in cols))
+    torch.cuda.synchronize()
+    assert sv_cluster.LAUNCHES["sv_cluster"] == before + 1
+    assert torch.equal(got.cpu(), sv_cluster.cluster_scan_plain(*cols))
+
+
+@pytest.mark.parametrize("seed,n,trim", [(11, 200, 0.0), (5, 60, 0.01),
+                                         (23, 400, 0.0)])
+def test_cluster_breakpoints_cuda_matches_cpu(seed, n, trim):
+    """The sweep and both curve combinations on cuda against cpu: every
+    integer field equal, PRPOS/PREND within atol 2e-5."""
+    _need_card()
+    from speedseq_tpu_torch.sv.cluster import cluster_breakpoints
+
+    ev = sv_cases.random_evidence(np.random.default_rng(seed), n)
+    cpu = cluster_breakpoints(ev, min_weight=1, trim=trim, device="cpu")
+    gpu = cluster_breakpoints(ev, min_weight=1, trim=trim, device="cuda")
+    _assert_calls_equal(gpu, cpu)
+
+
+def test_cluster_breakpoints_deep_pile_cuda_matches_cpu():
+    """One cluster of 2,000 members (2,000 steps of the member-rank loop)
+    on cuda against cpu, under the same rules."""
+    _need_card()
+    from speedseq_tpu_torch.sv.cluster import cluster_breakpoints
+
+    ev = sv_cases.pile_evidence(np.random.default_rng(41), 2000)
+    cpu = cluster_breakpoints(ev, device="cpu")
+    gpu = cluster_breakpoints(ev, device="cuda")
+    assert len(cpu) == 1 and cpu[0].su == 2000
+    _assert_calls_equal(gpu, cpu)
+
+
+def _assert_calls_equal(gpu, cpu):
+    assert len(gpu) == len(cpu) > 0
+    for a, b in zip(gpu, cpu):
+        for f in ("svtype", "tid1", "strand1", "pos1", "tid2", "strand2",
+                  "pos2", "cipos", "ciend", "cipos95", "ciend95", "su", "pe",
+                  "sr", "sample_support", "imprecise"):
+            assert getattr(a, f) == getattr(b, f), f
+        np.testing.assert_allclose(a.prpos, b.prpos, atol=2e-5, rtol=0)
+        np.testing.assert_allclose(a.prend, b.prend, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fixture", ["unmapped_tail_bam", "depth_tier_bam"])
+def test_svtyper_cuda_matches_cpu(fixture, tmp_path):
+    """The SVTyper program on cuda against cpu: counts and GT equal, GQ
+    within 1, SQ within 0.05, GL within 1."""
+    _need_card()
+    from speedseq_tpu_torch.sv.cluster import SVCall
+    from speedseq_tpu_torch.sv.evidence import InsertStats
+    from speedseq_tpu_torch.sv.svtyper import SVGenotyper
+
+    bam = str(tmp_path / "t.bam")
+    calls = [SVCall(**f) for f in getattr(sv_cases, fixture)(bam)]
+    st = InsertStats.synthetic(300, 50)
+    cpu = SVGenotyper(bam, st, device="cpu").genotype_all(calls)
+    gpu = SVGenotyper(bam, st, device="cuda").genotype_all(calls)
+    for a, b in zip(gpu, cpu):
+        for f in ("dp", "ro", "ao", "rs", "as_", "rp", "ap", "gt", "ab"):
+            assert getattr(a, f) == getattr(b, f), f
+        assert abs(a.gq - b.gq) <= 1 and abs(a.sq - b.sq) <= 0.05
+        assert np.abs(np.subtract(a.gl, b.gl)).max() <= 1
+
+
+def test_depth_programs_cuda_matches_cpu():
+    """Depth bins and GC correction equal on cuda and cpu; mean-shift on
+    the abrupt-boundary fixture within rtol 1e-4, the same CNV call."""
+    _need_card()
+    from speedseq_tpu_torch.sv import device as sd
+    from speedseq_tpu_torch.sv.cnv import DepthProfile
+
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 5001, 200_000)
+    np.testing.assert_array_equal(sd.depth_bins(idx, 5001, device="cuda"),
+                                  sd.depth_bins(idx, 5001, device="cpu"))
+    counts = rng.poisson(60, 5000).astype(np.float64)
+    strata = rng.integers(30, 60, 5000)
+    valid = rng.random(5000) > 0.05
+    gc, mc = sd.gc_correct(counts, strata, valid, device="cuda")
+    cc, mm = sd.gc_correct(counts, strata, valid, device="cpu")
+    np.testing.assert_array_equal(gc, cc)
+    assert mc == mm
+    x, mean = sv_cases.abrupt_profile()
+    calls = {}
+    for dev in ("cpu", "cuda"):
+        prof = DepthProfile(bin_size=100, chroms=["c"], counts={"c": x},
+                            corrected={"c": x}, mean=mean, device=dev)
+        calls[dev] = ([(c.kind, c.start, c.end) for c in prof.call("c")],
+                      prof.partition("c"))
+    assert calls["cuda"][0] == calls["cpu"][0] == [("deletion", 15000, 25000)]
+    np.testing.assert_allclose(calls["cuda"][1], calls["cpu"][1], rtol=1e-4)
