@@ -18,6 +18,13 @@ Phases, each printing one JSON line:
            from disk and builds the k-mer index as a fresh CLI run does;
            reads/s with and without that load, device-step share, kernel
            launch counts, record counts, accuracy vs truth
+  realign  the align phase's BAM (65,536 pairs) through the port's CLI
+           ``realign`` on cuda (batch 8,192, the reference's cache cleared
+           first): wall, reads/s, extract / device-step / emit times, the
+           peak of reads waiting for their mates, kernel launches; every
+           primary read kept, >= 98 % of placements unchanged, read groups
+           carried, the triple and its indexes written; then the parity
+           phase's BAM realigned on cpu and on cuda: record-equal
   var      one 1 Mbp contig with a diploid sample (SNVs 0.3 %, indels
            0.05 %) at 30x (100,000 pairs × 150 bp) aligned by the port's
            CLI on cuda, then ``var`` through the CLI on cuda (ten 100 kb
@@ -25,6 +32,16 @@ Phases, each printing one JSON line:
            counters and times, recall/precision against the truth (>= 0.92
            each), and runs over the first 200 kb (four windows) on cpu, on
            cuda and on cuda with 4 threads that must give the same records
+  somatic  one 1 Mbp contig; germline heterozygous SNVs (0.1 %) in both
+           samples, somatic heterozygous SNVs (0.02 %) in the tumor only;
+           normal 100,000 pairs (30x) and tumor 200,000 pairs (60x) of
+           150 bp aligned by the port's CLI on cuda, then ``somatic -t 1
+           --gff`` through the CLI on cuda (a GTF of 20 two-exon coding
+           transcripts): wall, Mbp/s, reads/s, var and annotate timers,
+           device counters, PASS counts, recall (>= 0.6) and precision
+           (>= 0.9) against the planted somatic SNVs, SSC, CSQ and PED
+           checks, and runs over the first 200 kb on cpu, on cuda and on
+           cuda with 4 threads that must give the same records
   sv       two contigs (1.5 + 0.5 Mbp) whose sample carries 8 deletions,
            4 tandem duplications and 4 inversions (all heterozygous) and a
            reciprocal translocation, 200,000 pairs × 150 bp (30x) aligned
@@ -62,6 +79,9 @@ PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
 VAR_BP, VAR_PAIRS = 1_000_000, 100_000   # 30x of 2 × 150 bp
 VAR_PARITY_BP = 200_000
+SOM_BP = 1_000_000                 # somatic: one contig, normal 30x, tumor 60x
+SOM_NORMAL_PAIRS, SOM_TUMOR_PAIRS = 100_000, 200_000
+SOM_GENES = 20                     # two-exon coding transcripts in its GTF
 SV_BP, SV_PAIRS = (1_500_000, 500_000), 200_000   # 30x of 2 × 150 bp
 SV_SLACK = 150                     # breakpoint bar of tests/test_sv.py:126
 SV_PILE = 4_096                    # members of the combine phase's cluster
@@ -266,34 +286,86 @@ def phase_align(work, fasta, genome, args):
     return launches
 
 
-def _vcf_mismatch(a, b):
-    """None when two var record lists agree on CHROM, POS, REF, ALT,
-    FILTER, GT, DP, RO, AO, QR, QA, RPL, RPR, SAF, SAR, with GQ within 1
-    and QUAL and GL within 0.01 (their last printed digit); else why."""
-    if len(a) != len(b):
-        return f"{len(a)} vs {len(b)} records"
-    close = lambda x, y: abs(x - y) <= 0.0100001
-    for x, y in zip(a, b):
-        where = f"{x.chrom}:{x.pos}"
-        if (x.chrom, x.pos, x.ref, x.alt, x.filter) != (
-                y.chrom, y.pos, y.ref, y.alt, y.filter):
-            return f"{where}: site differs"
-        if any(x.info[k] != y.info[k]
-               for k in ("DP", "RO", "AO", "RPL", "RPR", "SAF", "SAR")):
-            return f"{where}: INFO counts differ"
-        if not close(x.qual or 0.0, y.qual or 0.0):
-            return f"{where}: QUAL {x.qual} vs {y.qual}"
-        for sx, sy in zip(x.samples, y.samples):
-            if any(sx[k] != sy[k]
-                   for k in ("GT", "DP", "RO", "AO", "QR", "QA")):
-                return f"{where}: FORMAT counts differ"
-            if abs(int(sx["GQ"]) - int(sy["GQ"])) > 1:
-                return f"{where}: GQ {sx['GQ']} vs {sy['GQ']}"
-            gx = [float(v) for v in str(sx["GL"]).split(",")]
-            gy = [float(v) for v in str(sy["GL"]).split(",")]
-            if len(gx) != len(gy) or not all(map(close, gx, gy)):
-                return f"{where}: GL {sx['GL']} vs {sy['GL']}"
-    return None
+def phase_realign(work, fasta):
+    """realign of the align phase's BAM through the CLI on cuda (the
+    kernels' counts set to 0 just before it and read just after), then
+    cpu/cuda parity on the parity phase's BAM."""
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.align import pipeline
+    from speedseq_tpu_torch.align.pipeline import AlignConfig
+    from speedseq_tpu_torch.align.realign import realign
+    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    def primaries(path):
+        hdr, recs = read_records(path)
+        return hdr, recs, {(r.qname, r.flag & 0xC0): (r.tid, r.pos)
+                           for r in recs if not r.flag & 0x900}
+
+    src = os.path.join(work, "aln.bam")
+    prefix = os.path.join(work, "re")
+    pipeline._host_cache.clear()   # a fresh CLI run loads the index
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sw_banded.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["realign", "--device", "cuda", "--batch-size", str(BATCH),
+                   "-o", prefix, fasta, src])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sw_banded.LAUNCHES)
+    snap = metrics.snapshot()
+    check(rc == 0, f"realign CLI returned {rc}")
+    for k, v in launches.items():
+        check(v > 0, f"{k} was not launched on the realign path")
+    _, _, before = primaries(src)
+    hdr, recs, after = primaries(prefix + ".bam")
+    kept = sum(after.get(k) == v for k, v in before.items()) / len(before)
+    rg_lines = [l for l in hdr.text.splitlines() if l.startswith("@RG")]
+    counts = {}
+    for suffix in (".bam", ".splitters.bam", ".discordants.bam"):
+        check(os.path.exists(prefix + suffix + ".bai"),
+              f"realign wrote no {suffix}.bai")
+        counts[suffix[1:]] = (len(recs) if suffix == ".bam"
+                              else len(read_records(prefix + suffix)[1]))
+
+    # cpu/cuda parity over the parity phase's BAM
+    par = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        out = realign(fasta, [os.path.join(work, "pc.bam")],
+                      os.path.join(work, f"re_{dev}"),
+                      config=AlignConfig(batch_size=PARITY_BATCH), device=dev)
+        par[dev] = ({k: read_records(out[k]) for k in
+                     ("bam", "splitters.bam", "discordants.bam")},
+                    time.perf_counter() - t0)
+    same = all(par["cpu"][0][k][0].text == par["cuda"][0][k][0].text
+               and par["cpu"][0][k][1] == par["cuda"][0][k][1]
+               for k in par["cpu"][0])
+    n_reads = len(before)
+    emit({"phase": "realign", "input_pairs": PAIRS, "batch_size": BATCH,
+          "wall_s": wall, "reads_per_s": n_reads / wall,
+          "index_load_s": snap.get("time.align.index_load", 0.0),
+          "extract_s": snap.get("time.realign.extract", 0.0),
+          "device_step_s": snap.get("align.device_step_s", 0.0),
+          "emit_s": snap.get("time.align.emit", 0.0),
+          "pending_peak": snap.get("realign.pending_peak", 0),
+          "launches": launches, "records": counts,
+          "primaries_in": n_reads, "primaries_out": len(after),
+          "placements_kept": kept, "rg_lines": rg_lines,
+          "parity_pairs": PARITY_PAIRS, "parity_record_equal": same,
+          "parity_cpu_s": par["cpu"][1], "parity_cuda_s": par["cuda"][1],
+          "metrics": snap,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(set(after) == set(before), "realign lost or added primary reads")
+    check(kept >= 0.98, f"realign kept {kept:.4f} < 0.98 of placements")
+    check(rg_lines == ["@RG\tID:smoke\tSM:smoke"] and all(
+        r.get_tag("RG") == "smoke" for r in recs),
+        "realign did not carry the read group through")
+    check(same, "realign: cpu and cuda triples differ")
 
 
 def phase_var(work, args):
@@ -305,6 +377,7 @@ def phase_var(work, args):
     from speedseq_tpu_torch.formats.vcf import read_vcf
     from speedseq_tpu_torch.utils import sim
     from speedseq_tpu_torch.utils.metrics import metrics
+    from speedseq_tpu_torch.utils.somatic_cases import records_mismatch
     from speedseq_tpu_torch.var.engine import VarConfig, run_var
     from speedseq_tpu_torch.var.normalize import left_align, primitives
 
@@ -370,7 +443,7 @@ def phase_var(work, args):
         par[name] = (read_vcf(path)[1], time.perf_counter() - t0)
         with open(path, "rb") as fh:
             raw[name] = fh.read()
-    why = _vcf_mismatch(par["cpu"][0], par["cuda"][0])
+    why = records_mismatch(par["cpu"][0], par["cuda"][0])
 
     emit({"phase": "var", "contig_bp": VAR_BP, "pairs": VAR_PAIRS,
           "read_len": 150, "coverage": 2 * 150 * VAR_PAIRS / VAR_BP,
@@ -401,6 +474,127 @@ def phase_var(work, args):
     check(len(par["cuda"][0]) > 0, "no records in the parity region")
     check(why is None, f"var cpu vs cuda: {why}")
     check(raw["cuda_t4"] == raw["cuda"], "var -t 4 on cuda differs from -t 1")
+
+
+def phase_somatic(work, args):
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.utils import somatic_cases
+    from speedseq_tpu_torch.utils.metrics import metrics
+    from speedseq_tpu_torch.var.somatic import SomaticConfig, run_somatic
+
+    t0 = time.perf_counter()
+    case = somatic_cases.tumor_normal(SOM_BP, SOM_NORMAL_PAIRS,
+                                      SOM_TUMOR_PAIRS, seed=args.seed + 400)
+    fasta = os.path.join(work, "som.fa")
+    somatic_cases.write_fasta(fasta, "chrS", case.genome)
+    gtf = os.path.join(work, "som.gtf")
+    somatic_cases.write_gtf(gtf, "chrS", SOM_BP, SOM_GENES, seed=args.seed)
+    bams = {}
+    for name, reads in (("normal", case.normal), ("tumor", case.tumor)):
+        f1, f2 = somatic_cases.write_fastqs(os.path.join(work, name), reads)
+        sm = name.upper()
+        rc = cli.main(["align", "-R", f"@RG\\tID:{sm[0]}\\tSM:{sm}", "-o",
+                       os.path.join(work, name), "--batch-size", str(BATCH),
+                       "--device", "cuda", fasta, f1, f2])
+        check(rc == 0, f"align CLI for the {name} input returned {rc}")
+        bams[name] = os.path.join(work, name + ".bam")
+    setup_s = time.perf_counter() - t0
+
+    out = os.path.join(work, "som")
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["somatic", "--device", "cuda", "-t", "1", "--gff", gtf,
+                   "-o", out, fasta, bams["normal"], bams["tumor"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    check(rc == 0, f"somatic CLI returned {rc}")
+    check(snap.get("var.windows_failed", 0) == 0, "a somatic window failed")
+    check(snap.get("var.hap_scan_lanes.cuda", 0) > 0,
+          "the haplotype scan did not run on cuda")
+    check(snap.get("var.genotype_programs.cuda", 0) > 0,
+          "the genotyping program did not run on cuda")
+    hdr, recs = read_vcf(out + ".vcf.gz")
+    passed = [r for r in recs if r.filter == "PASS"]
+    truth = {p for p, _, _ in case.somatic}
+    germ = {p for p, _, _ in case.germline}
+    tp = sum(r.pos in truth for r in passed)
+    recall, precision = tp / len(truth), tp / max(1, len(passed))
+    csq = [r.info.get("CSQ", "").split(",")[0].split("|") for r in recs]
+    coding = sum(f[0] in ("missense_variant", "synonymous_variant",
+                          "stop_gained", "stop_lost", "start_lost")
+                 for f in csq)
+    with open(out + ".ped") as fh:
+        ped = fh.read()
+
+    # parity region: four windows, so -t 4 runs the haplotype scan and the
+    # genotyping program from four threads at once
+    bed = os.path.join(work, "som_first.bed")
+    step = VAR_PARITY_BP // 4
+    with open(bed, "w") as fh:
+        fh.writelines(f"chrS\t{a}\t{a + step}\n"
+                      for a in range(0, VAR_PARITY_BP, step))
+    par, raw = {}, {}
+    for name, dev, threads in (("cpu", "cpu", 1), ("cuda", "cuda", 1),
+                               ("cuda_t4", "cuda", 4)):
+        path = os.path.join(work, f"som_{name}.vcf.gz")
+        t0 = time.perf_counter()
+        run_somatic(fasta, bams["normal"], bams["tumor"], path,
+                    windows_bed=bed, config=SomaticConfig(threads=threads),
+                    device=dev)
+        par[name] = (read_vcf(path)[1], time.perf_counter() - t0)
+        with open(path, "rb") as fh:
+            raw[name] = fh.read()
+    why = (somatic_cases.records_mismatch(par["cpu"][0], par["cuda"][0])
+           or somatic_cases.records_mismatch(par["cuda"][0],
+                                             par["cuda_t4"][0]))
+    n_reads = 2 * (SOM_NORMAL_PAIRS + SOM_TUMOR_PAIRS)
+    emit({"phase": "somatic", "contig_bp": SOM_BP,
+          "normal_pairs": SOM_NORMAL_PAIRS, "tumor_pairs": SOM_TUMOR_PAIRS,
+          "read_len": 150,
+          "coverage": [2 * 150 * n / SOM_BP for n in (SOM_NORMAL_PAIRS,
+                                                     SOM_TUMOR_PAIRS)],
+          "germline_snvs": len(germ), "somatic_snvs": len(truth),
+          "setup_s": setup_s, "wall_s": wall,
+          "mbp_per_s": SOM_BP / 1e6 / wall, "reads_per_s": n_reads / wall,
+          "pileup_s": snap.get("time.var.pileup", 0.0),
+          "loci_s": snap.get("time.var.loci", 0.0),
+          "hap_scan_s": snap.get("time.var.hap_scan", 0.0),
+          "genotype_s": snap.get("time.var.genotype", 0.0),
+          "emit_s": snap.get("time.var.emit", 0.0),
+          "annotate_s": snap.get("time.annotate", 0.0),
+          "genotype_programs": snap.get("var.genotype_programs.cuda", 0),
+          "hap_scan_lanes": snap.get("var.hap_scan_lanes.cuda", 0),
+          "records": len(recs), "pass": len(passed),
+          "non_pass": len(recs) - len(passed),
+          "recall": recall, "precision": precision,
+          "coding_records": coding,
+          "parity_bp": VAR_PARITY_BP, "parity_records": len(par["cuda"][0]),
+          "parity_cpu_s": par["cpu"][1], "parity_cuda_s": par["cuda"][1],
+          "parity_cuda_t4_s": par["cuda_t4"][1], "parity_ok": why is None,
+          "threads_byte_equal": raw["cuda_t4"] == raw["cuda"],
+          "metrics": snap,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(recall >= 0.6, f"somatic recall {recall:.4f} < 0.6")
+    check(precision >= 0.9, f"somatic precision {precision:.4f} < 0.9")
+    check(not any(r.pos in germ for r in passed),
+          "a germline site was called PASS")
+    check(all(r.samples[0]["GT"] == "0/0" for r in passed),
+          "a PASS record has a non-reference normal")
+    check(all(next(iter(r.info)) == "SSC" for r in recs),
+          "SSC is not first in INFO on every record")
+    check(any(l.startswith("##INFO=<ID=SSC") for l in hdr.lines),
+          "the header does not declare SSC")
+    check("NORMAL" in ped and "TUMOR" in ped, "the PED file lacks a sample")
+    check(all(len(f) == 11 for f in csq), "a record lacks an 11-field CSQ")
+    check(coding > 0, "no record has a coding consequence")
+    check(len(par["cuda"][0]) > 0, "no records in the somatic parity region")
+    check(why is None, f"somatic cpu vs cuda vs cuda -t 4: {why}")
 
 
 def _sv_mismatch(a, b):
@@ -776,7 +970,9 @@ def main() -> int:
         synth.write_fasta(fasta, genome)
         phase_parity(work, fasta, genome, args)
         launches = phase_align(work, fasta, genome, args)
+        phase_realign(work, fasta)
         phase_var(work, args)
+        phase_somatic(work, args)
         sv_launches, sv_cols = phase_sv(work, args)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -6,4 +6,5 @@
   core                       — pair selection, extension, mate rescue, XA
   markdup / emit             — SAMBLASTER-equivalent epilogue
   pipeline                   — FASTQ → BAM triple driver (speedseq align)
+  realign                    — BAM(s) → BAM triple (speedseq realign)
 """

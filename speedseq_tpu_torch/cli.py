@@ -1,9 +1,10 @@
 """Command-line interface of the port: the speedseq driver surface.
 
-``align``, ``var`` and ``sv`` are ported; their flags are those of the JAX
-package's CLI (which mirror bin/speedseq:235-295, :540-590 and
-:1205-1300) plus ``--device``.  The other subcommands, and the ``--gff``
-and ``-A`` options of var and sv, say they are not ported and exit 2.
+All five subcommands are ported: ``align``, ``realign``, ``var``,
+``somatic`` and ``sv``.  Their flags are those of the JAX package's CLI
+(which mirror bin/speedseq:235-295, :1690-1754, :540-590, :882-946 and
+:1205-1300) plus ``--device`` (cuda unless ``--device cpu``).  Only
+``--seed-mode fm`` is refused (exit 2): FM seeding is not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +14,18 @@ import os
 import sys
 from typing import List, Optional
 
-NOT_PORTED = ("realign", "somatic")
+
+def _warn_vep(args) -> None:
+    """-A is parsed for reference-CLI compatibility but VEP is an external
+    annotator even in the reference (README.md:96-109); run it on the
+    emitted vcf.gz directly."""
+    if getattr(args, "A", False):
+        print(
+            "warning: -A (Ensembl VEP) is not bundled; use --gff FILE for "
+            "the bundled GFF-driven annotator (CSQ fields), or run VEP on "
+            "the output vcf.gz directly",
+            file=sys.stderr,
+        )
 
 
 def _kconfig(args):
@@ -31,6 +43,28 @@ def _parse_insert_override(s: str):
     mx = int(parts[2]) if len(parts) > 2 else int(mean + 4 * std)
     mn = int(parts[3]) if len(parts) > 3 else 0
     return (mean, std, mx, mn)
+
+
+def _annotate(output: str, gff: str, fasta: str, sv_routing=False) -> None:
+    """--gff: the bundled annotator over the written VCF (timer
+    ``annotate``)."""
+    from .utils.metrics import metrics
+    from .var.annotate import annotate_vcf
+
+    with metrics.timer("annotate"):
+        annotate_vcf(output, gff, fasta, sv_routing=sv_routing)
+
+
+def _threads(args, kcfg) -> int:
+    return args.t if args.t is not None else kcfg.threads
+
+
+def _refuse_fm(args) -> bool:
+    """Print a note and return True for --seed-mode fm (not ported)."""
+    if args.seed_mode != "hash":
+        print("error: --seed-mode fm is not ported yet", file=sys.stderr)
+        return True
+    return False
 
 
 def _align_config(args):
@@ -55,8 +89,7 @@ def cmd_align(args) -> int:
     if not args.R:
         print("error: -R readgroup string is required", file=sys.stderr)
         return 1
-    if args.seed_mode != "hash":
-        print("error: --seed-mode fm is not ported yet", file=sys.stderr)
+    if _refuse_fm(args):
         return 2
     out = args.o or os.path.basename(args.fastq1).split(".")[0]
     outputs = align_fastq(
@@ -67,6 +100,21 @@ def cmd_align(args) -> int:
         out_prefix=out,
         config=_align_config(args),
         device=args.device,
+    )
+    for v in outputs.values():
+        print(v)
+    return 0
+
+
+def cmd_realign(args) -> int:
+    from .align.realign import realign
+
+    if _refuse_fm(args):
+        return 2
+    out = args.o or os.path.basename(args.bams[0]).rsplit(".", 1)[0] + ".realign"
+    outputs = realign(
+        args.reference, args.bams, out, config=_align_config(args),
+        rename=args.n, device=args.device,
     )
     for v in outputs.values():
         print(v)
@@ -87,21 +135,10 @@ def _resolve_windows(w, kcfg):
     return w or kcfg.windows_bed
 
 
-def _unported_options(args) -> bool:
-    """Print a note and return True when --gff or -A was given."""
-    for flag, given in (("--gff", args.gff), ("-A", args.A)):
-        if given:
-            print(f"speedseq_tpu_torch: {args.command} {flag} is not ported "
-                  "yet (use python -m speedseq_tpu)", file=sys.stderr)
-            return True
-    return False
-
-
 def cmd_var(args) -> int:
     from .var.engine import VarConfig, run_var
 
-    if _unported_options(args):
-        return 2
+    _warn_vep(args)
     kcfg = _kconfig(args)
     out = args.o or os.path.basename(args.bams[0]).rsplit(".", 1)[0]
     output = out + ".vcf.gz"
@@ -111,11 +148,45 @@ def cmd_var(args) -> int:
         output,
         windows_bed=_resolve_windows(args.w, kcfg),
         config=VarConfig(
-            min_qual=args.q,
-            threads=args.t if args.t is not None else kcfg.threads,
-            verbose=args.v),
+            min_qual=args.q, threads=_threads(args, kcfg), verbose=args.v),
         device=args.device,
     )
+    if args.gff:
+        _annotate(output, args.gff, args.reference)
+    print(output)
+    return 0
+
+
+def cmd_somatic(args) -> int:
+    from .var.caller import CallerConfig
+    from .var.somatic import SomaticConfig, run_somatic
+
+    _warn_vep(args)
+    kcfg = _kconfig(args)
+    out = args.o or os.path.basename(args.tumor_bam).rsplit(".", 1)[0]
+    output = out + ".vcf.gz"
+    run_somatic(
+        args.reference,
+        args.normal_bam,
+        args.tumor_bam,
+        output,
+        windows_bed=_resolve_windows(args.w, kcfg),
+        config=SomaticConfig(
+            min_qual=args.q,
+            ssc_threshold=args.S,
+            only_somatic=args.only_somatic,
+            threads=_threads(args, kcfg),
+            caller=CallerConfig(
+                min_alternate_fraction=args.F,
+                min_alternate_count=args.C,
+                pooled_discrete=True,
+            ),
+            verbose=args.v,
+        ),
+        device=args.device,
+    )
+    if args.gff:
+        _annotate(output, args.gff, args.reference)
     print(output)
     return 0
 
@@ -135,10 +206,10 @@ def _resolve_exclude(x, kcfg):
 
 def cmd_sv(args) -> int:
     from .formats.bam import BAMReader
-    from .sv.engine import SVConfig, SVSample, is_cram, run_sv
+    from .formats.cram import CRAMReader, is_cram
+    from .sv.engine import SVConfig, SVSample, run_sv
 
-    if _unported_options(args):
-        return 2
+    _warn_vep(args)
     fulls = args.B.split(",")
     spls = args.S.split(",") if args.S else [
         f.rsplit(".bam", 1)[0] + ".splitters.bam" for f in fulls
@@ -148,17 +219,16 @@ def cmd_sv(args) -> int:
     ]
     samples = []
     for f, s, d in zip(fulls, spls, discs):
-        if is_cram(f):
-            print(f"speedseq_tpu_torch: sv: {f}: CRAM input is not ported "
-                  "yet (use python -m speedseq_tpu)", file=sys.stderr)
-            return 2
         name = os.path.basename(f).rsplit(".", 1)[0]
-        with BAMReader(f) as rd:
+        rd = CRAMReader(f) if is_cram(f) else BAMReader(f)
+        try:
             for line in rd.header.text.splitlines():
                 if line.startswith("@RG") and "SM:" in line:
                     name = [x for x in line.split("\t")
                             if x.startswith("SM:")][0][3:]
                     break
+        finally:
+            rd.close()
         samples.append(SVSample(name, f, s, d))
     kcfg = _kconfig(args)
     out = args.o or os.path.basename(fulls[0]).rsplit(".", 1)[0]
@@ -173,45 +243,49 @@ def cmd_sv(args) -> int:
             prob_curves=args.P,
             exclude_bed=_resolve_exclude(args.x, kcfg),
             reference=args.R,
-            threads=args.t if args.t is not None else kcfg.threads,
+            threads=_threads(args, kcfg),
             trim_threshold=args.r,       # lumpy -r (bin/speedseq:1243)
             cnv_bin_size=args.w,         # cnvnator -w (bin/speedseq:1248)
             verbose=args.v,
         ),
         device=args.device,
     )
+    if args.gff:
+        if not args.R:
+            print("error: --gff annotation needs -R reference",
+                  file=sys.stderr)
+            return 1
+        _annotate(output, args.gff, args.R, sv_routing=True)
     print(output)
     return 0
-
-
-def cmd_not_ported(args) -> int:
-    print(f"speedseq_tpu_torch: '{args.command}' is not ported yet "
-          "(use python -m speedseq_tpu)", file=sys.stderr)
-    return 2
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="speedseq_tpu_torch",
-        description="PyTorch/CUDA port of speedseq_tpu (align, var and sv "
-        "ported)",
+        description="PyTorch/CUDA port of speedseq_tpu "
+        "(align | var | somatic | sv | realign)",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
+    def common(sp):
+        sp.add_argument("-o", metavar="STR", help="output prefix")
+        sp.add_argument("-t", type=int, default=None, metavar="INT",
+                        help="threads for host fan-out [config or 1]")
+        sp.add_argument("-T", metavar="DIR", help="temp directory (compat)")
+        sp.add_argument("-K", metavar="FILE", help="speedseq.config path")
+        sp.add_argument("-v", action="store_true", help="verbose")
+        sp.add_argument("-k", action="store_true",
+                        help="keep temporary files (compat)")
+        sp.add_argument("--batch-size", type=int, default=None,
+                        help="device batch size [config or 512]")
+        sp.add_argument("--seed-mode", choices=["hash", "fm"], default="hash",
+                        help="seeding structure (only hash is ported)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default) or cpu")
+
     a = sub.add_parser("align", help="align FASTQ with BWA-MEM-equivalent + dedup")
-    a.add_argument("-o", metavar="STR", help="output prefix")
-    a.add_argument("-t", type=int, default=None, metavar="INT",
-                   help="threads for host fan-out (compat)")
-    a.add_argument("-T", metavar="DIR", help="temp directory (compat)")
-    a.add_argument("-K", metavar="FILE", help="speedseq.config path")
-    a.add_argument("-v", action="store_true", help="verbose")
-    a.add_argument("-k", action="store_true", help="keep temporary files")
-    a.add_argument("--batch-size", type=int, default=None,
-                   help="device batch size [config or 512]")
-    a.add_argument("--seed-mode", choices=["hash", "fm"], default="hash",
-                   help="seeding structure (only hash is ported)")
-    a.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default) or cpu")
+    common(a)
     a.add_argument("-R", metavar="STR", help="read group header line (required)")
     a.add_argument("-p", action="store_true", help="interleaved paired-end input")
     a.add_argument("-I", metavar="FLOAT[,...]", help="insert distro mean,std,max,min")
@@ -224,59 +298,74 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("fastq2", nargs="?")
     a.set_defaults(func=cmd_align)
 
+    r = sub.add_parser("realign", help="realign BAM(s) preserving read groups")
+    common(r)
+    r.add_argument("-R", metavar="STR", help="read group override")
+    r.add_argument("-I", metavar="FLOAT[,...]", help="insert distro override")
+    r.add_argument("-n", action="store_true", help="rename reads")
+    r.add_argument("-i", action="store_true", help="include duplicates in splitters/discordants")
+    r.add_argument("-c", type=int, default=2, metavar="INT")
+    r.add_argument("-m", type=int, default=20, metavar="INT")
+    r.add_argument("-M", type=int, default=20, metavar="INT")
+    r.add_argument("reference")
+    r.add_argument("bams", nargs="+")
+    r.set_defaults(func=cmd_realign)
+
     v = sub.add_parser("var", help="call SNVs/indels (FreeBayes-equivalent)")
-    v.add_argument("-o", metavar="STR", help="output prefix")
+    common(v)
     v.add_argument("-w", metavar="FILE", help="BED of genomic windows ('default' = shipped depth-balanced BED)")
+    v.add_argument("--gff", metavar="FILE",
+                   help="GFF3/GTF for bundled functional annotation "
+                   "(CSQ fields; VEP-surface, var/annotate.py)")
     v.add_argument("-q", type=float, default=1.0, metavar="FLOAT", help="min QUAL [1]")
-    v.add_argument("-t", type=int, default=None, metavar="INT",
-                   help="threads for the per-window host phase [config or 1]")
-    v.add_argument("-K", metavar="FILE", help="speedseq.config path")
-    v.add_argument("-v", action="store_true", help="verbose")
-    v.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default) or cpu")
-    v.add_argument("--gff", metavar="FILE", help="GFF3/GTF annotation (not ported yet)")
-    v.add_argument("-A", action="store_true", help="annotate with VEP (not ported yet)")
+    v.add_argument("-A", action="store_true", help="annotate with VEP (external; not bundled)")
     v.add_argument("reference")
     v.add_argument("bams", nargs="+")
     v.set_defaults(func=cmd_var)
 
+    s = sub.add_parser("somatic", help="tumor/normal somatic calling")
+    common(s)
+    s.add_argument("-w", metavar="FILE")
+    s.add_argument("--gff", metavar="FILE",
+                   help="GFF3/GTF for bundled functional annotation")
+    s.add_argument("-q", type=float, default=1e-5, metavar="FLOAT",
+                   help="min QUAL for non-passing somatic [1e-5]")
+    s.add_argument("-F", type=float, default=0.05, metavar="FLOAT",
+                   help="min alternate fraction [0.05]")
+    s.add_argument("-C", type=int, default=2, metavar="INT",
+                   help="min alternate count [2]")
+    s.add_argument("-S", type=float, default=18.0, metavar="FLOAT",
+                   help="min SSC for PASS [18]")
+    s.add_argument("--only-somatic", action="store_true")
+    s.add_argument("-A", action="store_true")
+    s.add_argument("reference")
+    s.add_argument("normal_bam")
+    s.add_argument("tumor_bam")
+    s.set_defaults(func=cmd_somatic)
+
     sv = sub.add_parser("sv", help="call SVs (LUMPY+SVTyper-equivalent)")
-    sv.add_argument("-o", metavar="STR", help="output prefix")
-    sv.add_argument("-t", type=int, default=None, metavar="INT",
-                    help="threads for the per-sample genotyping fan-out "
-                    "[config or 1]")
-    sv.add_argument("-T", metavar="DIR", help="temp directory (compat)")
-    sv.add_argument("-K", metavar="FILE", help="speedseq.config path")
-    sv.add_argument("-v", action="store_true", help="verbose")
-    sv.add_argument("-k", action="store_true", help="keep temporary files")
-    sv.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default) or cpu")
-    sv.add_argument("-B", required=True, metavar="FILE", help="full BAM(s), comma separated")
+    common(sv)
+    sv.add_argument("-B", required=True, metavar="FILE", help="full BAM(s) or CRAM(s), comma separated")
     sv.add_argument("-S", metavar="FILE", help="splitters BAM(s)")
     sv.add_argument("-D", metavar="FILE", help="discordants BAM(s)")
-    sv.add_argument("-R", metavar="FILE", help="reference fasta (for -d)")
+    sv.add_argument("-R", metavar="FILE", help="reference fasta (for -d, --gff and CRAM)")
     sv.add_argument("-x", metavar="FILE", help="exclude BED ('default' = shipped LUMPY exclude BED)")
-    sv.add_argument("--gff", metavar="FILE", help="GFF3/GTF annotation (not ported yet)")
+    sv.add_argument("--gff", metavar="FILE",
+                    help="GFF3/GTF for bundled functional annotation "
+                    "(reference routing: chr1-22/X/Y, BND or |SVLEN|<=50kb)")
     sv.add_argument("-g", action="store_true", help="genotype breakends")
     sv.add_argument("-d", action="store_true", help="read-depth CNV annotation")
     sv.add_argument("-w", type=int, default=100, metavar="INT", help="CNV window [100]")
     sv.add_argument("-P", action="store_true", help="output probability curves")
     sv.add_argument("-m", type=int, default=4, metavar="INT", help="min sample weight [4]")
     sv.add_argument("-r", type=float, default=0.0, metavar="FLOAT", help="trim threshold [0]")
-    sv.add_argument("-A", action="store_true", help="annotate with VEP (not ported yet)")
+    sv.add_argument("-A", action="store_true", help="annotate with VEP (external; not bundled)")
     sv.set_defaults(func=cmd_sv)
-
-    for name in NOT_PORTED:
-        s = sub.add_parser(name, help="not ported yet", add_help=False)
-        s.set_defaults(func=cmd_not_ported)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.func is not cmd_not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.func(args)
 
 

@@ -57,12 +57,6 @@ class SVConfig:
     verbose: bool = False
 
 
-def is_cram(path: str) -> bool:
-    """True for a file that starts with the CRAM magic."""
-    with open(path, "rb") as fh:
-        return fh.read(4) == b"CRAM"
-
-
 def build_sv_header(
     contigs: List[Tuple[str, int]], samples: List[str], cfg: SVConfig
 ) -> VCFHeader:
@@ -226,6 +220,23 @@ def _ensure_side_bams(samples: List[SVSample], verbose: bool) -> None:
         extract_side_bams(s.full, spl_out, disc_out)
 
 
+def _convert_cram_inputs(samples: List[SVSample], cfg: SVConfig) -> None:
+    """CRAM full-BAM inputs decode to BAM first (the reference's sv
+    accepts CRAM via its lumpy cram branch, bin/speedseq:97-134;
+    formats/cram.py is our decoder).  Requires -R/reference unless the
+    CRAM embeds its reference."""
+    from ..formats.cram import cram_to_bam, is_cram
+
+    for s in samples:
+        if not os.path.exists(s.full) or not is_cram(s.full):
+            continue
+        out = s.full + ".decoded.bam"
+        if cfg.verbose:
+            print(f"[sv] decoding CRAM input {s.full} -> {out}")
+        cram_to_bam(s.full, out, reference=cfg.reference)
+        s.full = out
+
+
 def run_sv(
     samples: List[SVSample],
     output: str,
@@ -236,11 +247,7 @@ def run_sv(
     cpu); returns the output path."""
     cfg = config
     device = resolve_device(device)
-    for s in samples:
-        if os.path.exists(s.full) and is_cram(s.full):
-            raise NotImplementedError(
-                f"{s.full}: CRAM input to sv is not ported yet "
-                "(use python -m speedseq_tpu)")
+    _convert_cram_inputs(samples, cfg)
     _ensure_side_bams(samples, cfg.verbose)
     with metrics.timer("sv.insert_stats"):
         stats = [InsertStats.from_bam(s.full) for s in samples]

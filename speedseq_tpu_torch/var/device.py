@@ -229,6 +229,20 @@ def _esf_log_prior_table(theta: float) -> np.ndarray:
     return lp.astype(np.float32)
 
 
+def pooled_joint_genotypes(gl: np.ndarray, theta: float,
+                           device=None) -> JointGenotypes:
+    """The joint [normal, tumor] combination alone, for callers that
+    already hold per-sample GLs (the var/somatic engine runs it inside
+    the genotyping program instead), on ``device`` (cuda unless the
+    caller asks for cpu).  gl: (S, 2, G) max-normalized log10 GLs."""
+    device = resolve_device(device)
+    lp = torch.from_numpy(_esf_log_prior_table(float(theta))).to(device)
+    gl_t = torch.from_numpy(np.ascontiguousarray(gl, np.float32)).to(device)
+    gn, gt, gq, qual = (x.cpu().numpy()
+                        for x in _pooled_joint_core(gl_t, lp))
+    return JointGenotypes(gn=gn, gt=gt, gq=gq, qual=qual)
+
+
 def _bucket(n: int, mult: int) -> int:
     return max(mult, ((n + mult - 1) // mult) * mult)
 

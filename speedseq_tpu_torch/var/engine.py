@@ -55,6 +55,7 @@ class VarConfig:
     min_qual: float = 1.0           # speedseq var -q default (MINQUAL=1)
     window_size: int = 100_000      # internal chunking of chromosome windows
     caller: CallerConfig = field(default_factory=CallerConfig)
+    apply_balance_filter: bool = True  # the RPR>0 && RPL>0 vawk filter
     threads: int = 1                # speedseq -t (parallel -j, bin/speedseq:719)
     verbose: bool = False
 
@@ -168,7 +169,7 @@ def _columnar_sample_ids(
 
 
 def build_var_header(
-    contigs: List[Tuple[str, int]], samples: List[str]
+    contigs: List[Tuple[str, int]], samples: List[str], somatic: bool = False
 ) -> VCFHeader:
     h = VCFHeader.build(contigs, samples, source="speedseq_tpu_torch-var")
     h.add_info("DP", "1", "Integer", "Total read depth at the locus")
@@ -184,6 +185,8 @@ def build_var_header(
     h.add_info("TYPE", "A", "String", "The type of allele: snp, mnp, ins, del or complex")
     h.add_info("LEN", "A", "Integer", "Allele length")
     h.add_info("NUMALT", "1", "Integer", "Number of alternate alleles")
+    if somatic:
+        h.add_info("SSC", "1", "Float", "Somatic score")  # bin/speedseq:1087
     h.add_format("GT", "1", "String", "Genotype")
     h.add_format("GQ", "1", "Integer", "Genotype quality")
     h.add_format("DP", "1", "Integer", "Read depth")
@@ -201,10 +204,16 @@ def run_var(
     output: str,                      # *.vcf.gz
     windows_bed: Optional[str] = None,
     config: VarConfig = VarConfig(),
+    record_filter=None,
+    _somatic_header: bool = False,
     device=None,
 ) -> str:
     """Run variant calling on ``device`` (cuda unless the caller asks for
-    cpu); returns the output path."""
+    cpu); returns the output path.
+
+    ``record_filter(rec) -> Optional[VCFRecord]`` post-processes the
+    records that pass the vawk filter (somatic mode injects the SSC
+    filter here); ``_somatic_header`` declares ``##INFO SSC``."""
     cfg = config
     device = resolve_device(device)
     fa = FastaFile(reference)
@@ -222,8 +231,10 @@ def run_var(
 
     # the reference's per-window vawk filter (bin/speedseq:709), compiled
     # by the vawk-expression engine
-    driver_filter = compile_filter(
-        f"$6>={cfg.min_qual!r} && I$RPR>0 && I$RPL>0")
+    expr = f"$6>={cfg.min_qual!r}"
+    if cfg.apply_balance_filter:
+        expr += " && I$RPR>0 && I$RPL>0"
+    vawk_filter = compile_filter(expr)
 
     # windows: BED or per-chromosome (bin/speedseq:677-687), internally
     # chunked, scheduled longest-first (README.md:153-155)
@@ -343,8 +354,13 @@ def run_var(
         out = []
         for c in calls:
             rec = site_to_vcf(c, w.chrom, w.start, len(samples))
-            if driver_filter(rec):
-                out.append(rec)
+            if not vawk_filter(rec):
+                continue
+            if record_filter is not None:
+                rec = record_filter(rec)
+                if rec is None:
+                    continue
+            out.append(rec)
         if cfg.verbose:
             print(f"[var] {w.chrom}:{w.start}-{w.end}: {len(calls)} sites")
         return wi, out
@@ -389,7 +405,9 @@ def run_var(
         for r in recs
     ]
     tagged.sort(key=lambda t: t[:3])
-    header = build_var_header(refs, samples)
+    # somatic mode declares ##INFO SSC (the reference injects it into
+    # the merged header, bin/speedseq:1087)
+    header = build_var_header(refs, samples, somatic=_somatic_header)
     with VCFWriter(output, header) as w_:
         for _, _, _, r in tagged:
             w_.write(r)

@@ -1,8 +1,11 @@
-"""The port's CUDA kernels against their plain twins, and var's and sv's
-torch programs on cuda against cpu, on the card (marked ``gpu``; they skip
-without a CUDA device and count as not run).  Run on a
+"""The port's CUDA kernels against their plain twins, and var's, sv's,
+somatic's and realign's device paths on cuda against cpu, on the card
+(marked ``gpu``; they skip without a CUDA device and count as not run).
+Run on a
 machine with a card (the conftest imports jax, so leave it out there):
 python -m pytest --noconftest -m gpu tests/test_torch_gpu.py"""
+
+import os
 
 import numpy as np
 import pytest
@@ -207,3 +210,92 @@ def test_depth_programs_cuda_matches_cpu():
                       prof.partition("c"))
     assert calls["cuda"][0] == calls["cpu"][0] == [("deletion", 15000, 25000)]
     np.testing.assert_allclose(calls["cuda"][1], calls["cpu"][1], rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pooled_joint_genotypes_cuda_matches_cpu(seed):
+    """The joint [normal, tumor] combination alone: gn and gt equal, gq
+    and qual within 1e-4."""
+    _need_card()
+    from speedseq_tpu_torch.var.caller_space import GT_PAIRS, N_GT
+    from speedseq_tpu_torch.var.device import pooled_joint_genotypes
+
+    rng = np.random.default_rng(seed)
+    gl = rng.normal(0.0, 4.0, (2000, 2, N_GT)).astype(np.float32)
+    n_alts = rng.integers(1, 4, 2000)
+    hi = np.array([max(j, k) for j, k in GT_PAIRS])
+    gl[np.broadcast_to(hi[None, None, :] > n_alts[:, None, None],
+                       gl.shape)] = -1e9
+    gl -= gl.max(axis=2, keepdims=True)
+    cpu = pooled_joint_genotypes(gl, 0.001, device="cpu")
+    gpu = pooled_joint_genotypes(gl, 0.001, device="cuda")
+    np.testing.assert_array_equal(gpu.gn, cpu.gn)
+    np.testing.assert_array_equal(gpu.gt, cpu.gt)
+    np.testing.assert_allclose(gpu.gq, cpu.gq, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(gpu.qual, cpu.qual, atol=1e-4, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def tumor_normal_bams(tmp_path_factory):
+    """A random 12 kbp genome, normal and tumor at 25x of 100 bp pairs
+    (utils/somatic_cases.py), aligned by the port on the card."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.utils import somatic_cases
+
+    d = tmp_path_factory.mktemp("gsom")
+    case = somatic_cases.tumor_normal(12_000, 1500, 1500, seed=5,
+                                      read_len=100, somatic_rate=0.002)
+    fa = str(d / "s.fa")
+    somatic_cases.write_fasta(fa, "s", case.genome)
+    bams = {}
+    for name, reads in (("normal", case.normal), ("tumor", case.tumor)):
+        f1, f2 = somatic_cases.write_fastqs(str(d / name), reads)
+        sm = name.upper()
+        align_fastq(fa, f1, f2, out_prefix=str(d / name),
+                    config=AlignConfig(batch_size=512, rg_string=(
+                        f"@RG\\tID:{sm[0]}\\tSM:{sm}")), device="cuda")
+        bams[name] = str(d / f"{name}.bam")
+    return d, fa, bams
+
+
+def test_somatic_cuda_matches_cpu(tumor_normal_bams):
+    """run_somatic on cuda against cpu: the records equal under the var
+    rules (GL and QUAL within 0.01, GQ within 1, SSC within 0.03), the
+    PED files equal."""
+    _need_card()
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.utils.somatic_cases import records_mismatch
+    from speedseq_tpu_torch.var.somatic import run_somatic
+
+    d, fa, bams = tumor_normal_bams
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        out = run_somatic(fa, bams["normal"], bams["tumor"],
+                          str(d / f"som_{dev}.vcf.gz"), device=dev)
+        recs[dev] = read_vcf(out)[1]
+    assert sum(r.filter == "PASS" for r in recs["cuda"]) >= 10
+    assert records_mismatch(recs["cpu"], recs["cuda"]) is None
+    with open(d / "som_cpu.ped") as a, open(d / "som_cuda.ped") as b:
+        assert a.read() == b.read()
+
+
+def test_realign_cuda_matches_cpu(tumor_normal_bams):
+    """realign of the normal BAM on cuda against cpu: the BAM triples
+    record-equal, headers equal."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import AlignConfig
+    from speedseq_tpu_torch.align.realign import realign
+    from speedseq_tpu_torch.formats.bam import read_bam
+
+    d, fa, bams = tumor_normal_bams
+    outs = {dev: realign(fa, [bams["normal"]], str(d / f"re_{dev}"),
+                         config=AlignConfig(batch_size=500), device=dev)
+            for dev in ("cpu", "cuda")}
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        hc, rc = read_bam(outs["cpu"][k])
+        hg, rg = read_bam(outs["cuda"][k])
+        assert hc.text == hg.text
+        assert len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)), k
+        assert os.path.exists(outs["cuda"][k] + ".bai")
+    assert len(read_bam(outs["cuda"]["bam"])[1]) >= 3000

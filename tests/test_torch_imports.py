@@ -20,6 +20,9 @@ import speedseq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     speedseq_tpu_torch.__path__, "speedseq_tpu_torch.")
     if not m.name.endswith("__main__")]
+assert {"speedseq_tpu_torch.align.realign", "speedseq_tpu_torch.var.somatic",
+        "speedseq_tpu_torch.var.annotate", "speedseq_tpu_torch.formats.cram",
+        "speedseq_tpu_torch.formats.bamutil"} <= set(names)
 for n in names:
     importlib.import_module(n)
 assert not any(k == "speedseq_tpu" or k.startswith("speedseq_tpu.")
@@ -102,6 +105,12 @@ def test_cli_align_flags_and_unported_subcommands(capsys):
     assert args.device == "cuda" and args.seed_mode == "hash"
     cfg = cli._align_config(args)
     assert cfg.rg_id == "a" and cfg.sample == "b"
-    for sub in cli.NOT_PORTED:
-        assert cli.main([sub, "-o", "x", "in.bam"]) == 2
+    # every subcommand is ported; FM seeding is the one thing refused
+    for sub in ("realign", "var", "somatic", "sv"):
+        assert cli.build_parser().parse_args(
+            [sub, "-K", "k.cfg", "-B", "x.bam"] if sub == "sv" else
+            [sub, "-K", "k.cfg", "ref.fa", "a.bam", "b.bam"]).device == "cuda"
+    for sub in ("align", "realign"):
+        assert cli.main([sub, "--seed-mode", "fm", "-R", "@RG\\tID:a",
+                         "ref.fa", "in"]) == 2
         assert "not ported yet" in capsys.readouterr().err
