@@ -11,13 +11,23 @@ Phases, each printing one JSON line:
            production shapes (bit-equal), with kernel / twin / bound times
   parity   2,048 pairs through align_fastq on cpu and on cuda: the BAM
            triples must be record-equal
+  kernels  (fm) the FM index of the align genome loaded with no SA cache
+           (timed), then fm_smem against its twin (bit-equal) at 8,192
+           reads x 19 anchors = 155,648 lanes and fm_sa_walk against its
+           twin and the full SA at 622,592 ranks on an index without the
+           full SA: kernel / twin / bound times, extension steps run
+  parity   (fm) the same 2,048 pairs with seed_mode="fm" on cpu and on
+           cuda, record-equal, and once more on cuda with an index
+           without the full SA (the SA-walk path), record-equal too
   align    65,536 pairs × 150 bp (synthetic 3-contig ~6 Mbp genome with 64
            planted deletions and a duplicated segment, 1% seed-killed read-2
            ends) through the port's CLI entry on cuda, with the reference's
            in-process cache cleared first, so the run loads the bwa index
            from disk and builds the k-mer index as a fresh CLI run does;
            reads/s with and without that load, device-step share, kernel
-           launch counts, record counts, accuracy vs truth
+           launch counts, record counts, accuracy vs truth; then the
+           same pairs through ``align --seed-mode fm`` (SMEM seeding),
+           reported and held to the same bars
   realign  the align phase's BAM (65,536 pairs) through the port's CLI
            ``realign`` on cuda (batch 8,192, the reference's cache cleared
            first): wall, reads/s, extract / device-step / emit times, the
@@ -74,6 +84,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64            # Hopper SM: 64 INT32 units per clock
+POPC_PER_SM = 16                   # popcounts per SM per clock (sm_90)
 GENOME = (2_500_000, 2_000_000, 1_500_000)   # contig lengths, 6 Mbp
 PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
@@ -85,6 +96,8 @@ SOM_GENES = 20                     # two-exon coding transcripts in its GTF
 SV_BP, SV_PAIRS = (1_500_000, 500_000), 200_000   # 30x of 2 × 150 bp
 SV_SLACK = 150                     # breakpoint bar of tests/test_sv.py:126
 SV_PILE = 4_096                    # members of the combine phase's cluster
+FM_READS = 8_192                   # fm kernels: a batch's reads x 19 anchors
+FM_BIG_RANKS = 1 << 28             # fm_sa_walk beyond L2: a random text's index
 
 
 def emit(obj) -> None:
@@ -169,43 +182,359 @@ def phase_kernels(args, clock_hz: float, n_sms: int):
     return records
 
 
+def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
+                     n_sms: int):
+    """The FM index loaded with no SA cache (timed), then fm_smem against
+    its twin (bit-equal) at the align cell's shape, 8,192 reads x 19
+    anchors, and fm_sa_walk against its twin and the full SA at 4 ranks
+    per lane, on an index built without the full SA; returns both
+    kernels' records (launches filled in later)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.align import pipeline
+    from speedseq_tpu_torch.align.seeding import grid
+    from speedseq_tpu_torch.index.fm import FMIndex
+    from speedseq_tpu_torch.ops import fm_search
+    from speedseq_tpu_torch.utils import synth
+
+    cache = pipeline._sa_cache_path(fasta)
+    if os.path.exists(cache):
+        os.remove(cache)
+    pipeline._host_cache.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, fm, _ = pipeline._load_fm(fasta, torch.device("cuda"), "fm")
+    torch.cuda.synchronize()
+    cold_load_s = time.perf_counter() - t0
+    check(os.path.exists(cache), "the FM load wrote no SA cache")
+    sa_host = np.load(cache)
+    walk_fm = FMIndex.from_bwa_fm(idx, sa_host, "cuda", dense_sa_max=0)
+    check(fm.sa_dense is not None and walk_fm.sa_dense is None,
+          "dense / walk index split")
+    records = {}
+
+    rd = synth.simulate(genome, FM_READS, read_len=150, seed=args.seed + 500,
+                        kill_frac=0.01)
+    L = 151
+    reads = np.full((FM_READS, L), 4, np.uint8)
+    reads[:, :150] = rd.seq1
+    lens = np.full(FM_READS, 150, np.int32)
+    r_d, l_d = torch.from_numpy(reads).cuda(), torch.from_numpy(lens).cuda()
+    starts = grid(L, 8, "cuda")
+    G = starts.shape[0]
+    n = FM_READS * G
+    before = fm_search.LAUNCHES["fm_smem"]
+    got = fm_search.fm_smem(fm, r_d, l_d, starts)
+    torch.cuda.synchronize()
+    check(fm_search.LAUNCHES["fm_smem"] > before, "fm_smem did not launch")
+    want = fm_search.fm_smem_plain(fm, r_d, l_d, starts)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+    check(err == 0, f"fm_smem disagrees with its twin ({err})")
+    ms = cuda_ms(lambda: fm_search.fm_smem(fm, r_d, l_d, starts), reps=20)
+    plain_ms = cuda_ms(lambda: fm_search.fm_smem_plain(fm, r_d, l_d, starts),
+                       reps=2, warmup=0)
+    # steps run: each lane's successful extensions, plus the failing try
+    # when it reached the index (a base inside the read, within the bound)
+    qb, qe = (t.cpu().numpy().reshape(FM_READS, G).astype(np.int64)
+              for t in (got.qbeg, got.qend))
+    alive = got.alive0.cpu().numpy().reshape(FM_READS, G)
+    p = starts.cpu().numpy()[None, :].astype(np.int64)
+    rows = np.arange(FM_READS)[:, None]
+
+    def base_at(q):
+        inside = (q >= 0) & (q < lens[:, None])
+        return np.where(inside, reads[rows, np.clip(q, 0, L - 1)], 4)
+
+    fwd = (qe - p - 1) + ((qe - p < L) & (base_at(qe) < 4))
+    bwd = (p - qb) + ((p - qb + 1 <= L) & (base_at(qb - 1) < 4))
+    steps = np.where(alive, fwd + bwd, 0)
+    # the base of every step (forward: read[p+1 .. p+fwd], backward:
+    # read[p-bwd .. p-1]) sets the popcounts its lookups need; a forward
+    # step extends by the complement, and POPCS_FOR_BASE is symmetric
+    # under complement
+    q = np.arange(L)[None, None, :]
+    pq = p[..., None]
+    on = alive[..., None] & (((q > pq) & (q <= pq + fwd[..., None]))
+                             | ((q < pq) & (q >= pq - bwd[..., None])))
+    popcs = np.asarray(fm_search.POPCS_FOR_BASE + (0,))[reads][:, None, :]
+    two = int((on & (popcs == 2)).sum())
+    check(int(on.sum()) == int(steps.sum()), "fm_smem step census")
+    one = int(steps.sum()) - two
+    occ1, occ2 = fm_search.occ_ops(1), fm_search.occ_ops(2)
+    int_ops = (float(steps.sum()) * fm_search.OPS_PER_STEP
+               + 2 * (one * occ1[0] + two * occ2[0]))
+    popc_ops = 2 * (one * occ1[1] + two * occ2[1])
+    index_bytes = 4.0 * (fm.count.numel() + fm.occ_ckpt.numel()
+                         + fm.bwt.numel())
+    nbytes = reads.size + 4.0 * (FM_READS + G) + index_bytes + 17.0 * n
+    bound = _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms)
+    chain_ms = (int(steps.max()) * fm_search.CHAIN_OPS_PER_STEP / clock_hz
+                * 1e3)
+    records["fm_smem"] = {
+        "name": "fm_smem", "route": "cuda",
+        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
+        "replaces": "speedseq_tpu/align/seeding.py:109",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None}
+    emit({"phase": "kernels", "kernel": "fm_smem", "reads": FM_READS,
+          "anchors": G, "lanes": n, "alive_lanes": int(alive.sum()),
+          "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
+          "steps_total": int(steps.sum()), "steps_two_class": two,
+          "steps_longest_lane": int(steps.max()), **bound,
+          "chain_ms": chain_ms, "index_load_cold_s": cold_load_s,
+          "seq_len": fm.seq_len})
+
+    # the walk: 4 ranks per lane from the lanes' intervals (every lane,
+    # not only the hits a seed keeps), on the index without the full SA;
+    # its 4.5 MB of occ and BWT stay in L2
+    h = torch.arange(4, dtype=torch.int32, device="cuda")
+    ranks = (got.k[:, None] + h).clamp(1, fm.seq_len).reshape(-1)
+    small = _walk_case(walk_fm, ranks, fm.sa_dense, clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "fm_sa_walk",
+          "index": "align genome, L2-resident", "seq_len": fm.seq_len,
+          **small})
+
+    # the walk's own regime (indexes above 2^25 ranks): a random text's
+    # index of FM_BIG_RANKS ranks, occ and BWT 4x the L2, at as many
+    # uniform ranks
+    t0 = time.perf_counter()
+    big_fm, big_sa = _random_fm_index(FM_BIG_RANKS - 1, args.seed + 600)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 601)
+    big_ranks = torch.randint(1, big_fm.seq_len + 1, (ranks.numel(),),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+    big = _walk_case(big_fm, big_ranks, big_sa, clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "fm_sa_walk",
+          "index": "random text, beyond L2", "seq_len": big_fm.seq_len,
+          "index_build_s": build_s, **big})
+    del big_fm, big_sa
+    torch.cuda.empty_cache()
+    records["fm_sa_walk"] = {
+        "name": "fm_sa_walk", "route": "cuda",
+        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
+        "replaces": "speedseq_tpu/index/fm.py:306",
+        "launches": 0, "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"], "library_ms": None}
+    return records
+
+
+def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
+    """The least time of a kernel's work: the larger of its int32
+    operations over 64 lanes/SM/clock, its popcounts over 16/SM/clock and
+    its bytes over the HBM rate."""
+    ms = {"operations": max(int_ops / (n_sms * INT32_LANES_PER_SM),
+                            popc_ops / (n_sms * POPC_PER_SM)) / clock_hz * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"int32_ops": int_ops, "popc_ops": popc_ops, "bytes": nbytes,
+            "ops_ms": ms["operations"], "bytes_ms": ms["bytes"],
+            "bound_ms": ms[by], "bound_by": by}
+
+
+def _walk_case(walk_fm, ranks, sa_full, clock_hz, n_sms):
+    """fm_sa_walk on ``ranks`` against its twin and the full SA (exact),
+    timed, with its bound from the steps these ranks take."""
+    import torch
+
+    from speedseq_tpu_torch.ops import fm_search
+
+    before = fm_search.LAUNCHES["fm_sa_walk"]
+    walked = fm_search.fm_sa_walk(walk_fm, ranks)
+    torch.cuda.synchronize()
+    check(fm_search.LAUNCHES["fm_sa_walk"] > before,
+          "fm_sa_walk did not launch")
+    dense = sa_full[ranks.long()]
+    err = max(int((walked.long() - t.long()).abs().max()) for t in
+              (fm_search.fm_sa_walk_plain(walk_fm, ranks), dense))
+    check(err == 0, f"fm_sa_walk disagrees with its twin or the SA ({err})")
+    ms = cuda_ms(lambda: fm_search.fm_sa_walk(walk_fm, ranks), reps=20)
+    plain_ms = cuda_ms(lambda: fm_search.fm_sa_walk_plain(walk_fm, ranks),
+                       reps=2, warmup=0)
+    wsteps = (dense % 32).long()     # one LF step a text position
+    total, m = float(wsteps.sum()), ranks.numel()
+    occ_int, occ_popc = fm_search.occ_ops(1)
+    int_ops = (total * (fm_search.OPS_PER_WALK_STEP + occ_int)
+               + m * fm_search.OPS_PER_WALK_RANK)
+    popc_ops = total * occ_popc + m
+    # bytes: the ranks and results, and of each index array no more than
+    # the steps and ranks can read (a step: 4 occ ints, up to 8 BWT words
+    # and a mark word; a rank: one more mark word, a checkpoint, a value)
+    need = lambda t, reads: 4.0 * min(t.numel(), reads)
+    nbytes = 8.0 * m + 16 + (need(walk_fm.occ_ckpt, 4 * total)
+                             + need(walk_fm.bwt, 8 * total)
+                             + need(walk_fm.sa_mark, total + m)
+                             + need(walk_fm.sa_ckpt, m)
+                             + need(walk_fm.sa_vals, m))
+    return {"ranks": m, "equal_to_twin_and_sa": True, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "steps_total": int(total),
+            "steps_longest": int(wsteps.max()),
+            **_ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms),
+            "chain_ms": int(wsteps.max()) * fm_search.CHAIN_OPS_PER_STEP
+            / clock_hz * 1e3}
+
+
+def _random_fm_index(n: int, seed: int, device: str = "cuda"):
+    """(FMIndex on the card without the full SA, full SA on the card) of
+    a random text of n codes: the suffix array by prefix doubling on the
+    card (argsort of 27-code keys, then of rank pairs), the BWT, occ
+    checkpoints and C from it, and the SA samples by the port's own
+    constructor (FMIndex.from_bwa_fm)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.index.bwt import OCC_INTERVAL
+    from speedseq_tpu_torch.index.fm import FMIndex
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    text = torch.randint(0, 4, (n,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    K = 27                               # 5^27 < 2^63: codes + 1, 0 past the end
+    padded = torch.cat([text.long() + 1,
+                        torch.zeros(K, dtype=torch.long, device=dev)])
+    key = torch.zeros(n + 1, dtype=torch.long, device=dev)
+    for j in range(K):
+        key = key * 5 + padded[j:j + n + 1]
+    del padded
+    hop = K
+    while True:
+        sa = torch.argsort(key)
+        sk = key[sa]
+        fresh = torch.zeros(n + 1, dtype=torch.long, device=dev)
+        fresh[1:] = (sk[1:] != sk[:-1]).cumsum(0)
+        del sk
+        if int(fresh[-1]) == n:
+            break
+        rank = torch.empty_like(fresh)
+        rank[sa] = fresh
+        nxt = torch.zeros_like(rank)
+        nxt[:n + 1 - hop] = rank[hop:] + 1
+        key = rank * (n + 2) + nxt
+        del rank, nxt
+        hop *= 2
+    del key, fresh
+    primary = int((sa == 0).nonzero()[0, 0])
+    row = text.long()[(sa - 1).clamp_min(0)]
+    stored = torch.cat([row[:primary], row[primary + 1:]])
+    del row
+    n_blocks = (n + OCC_INTERVAL - 1) // OCC_INTERVAL
+    padded = torch.full((n_blocks * OCC_INTERVAL,), 4, dtype=torch.long,
+                        device=dev)                   # 4: past the end
+    padded[:n] = stored
+    per_block = torch.stack([(padded == c).reshape(n_blocks, -1).sum(1)
+                             for c in range(4)], 1)
+    occ = torch.zeros((n_blocks + 1, 4), dtype=torch.long, device=dev)
+    occ[1:] = per_block.cumsum(0)
+    sh = (15 - torch.arange(16, device=dev)) * 2
+    words = ((padded & 3).reshape(-1, 16) << sh).sum(1)  # disjoint fields
+    L2 = np.zeros(5, dtype=np.int64)
+    L2[1:] = np.cumsum(torch.bincount(text.long(), minlength=4).cpu().numpy())
+    idx = SimpleNamespace(pac=text.cpu().numpy(), L2=L2, primary=primary,
+                          bwt_words=words.cpu().numpy().astype(np.uint32),
+                          occ=occ.cpu().numpy())
+    del padded, per_block, occ, words, stored
+    fm = FMIndex.from_bwa_fm(idx, sa.cpu().numpy(), dev, dense_sa_max=0)
+    return fm, sa.to(torch.int32)
+
+
 def read_records(path):
     from speedseq_tpu_torch.formats.bam import read_bam
 
     return read_bam(path)
 
 
-def phase_parity(work, fasta, genome, args):
+def _same_triple(out_a, out_b, what):
+    counts = {}
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        ha, ra = read_records(out_a[k])
+        hb, rb = read_records(out_b[k])
+        check(ha.text == hb.text, f"{what}: {k} headers differ")
+        check(len(ra) == len(rb) and all(a == b for a, b in zip(ra, rb)),
+              f"{what}: {k} records differ")
+        counts[k] = len(rb)
+    return counts
+
+
+def phase_parity(work, fasta, genome, args, seed_mode="hash"):
+    """2,048 pairs through align_fastq on cpu and on cuda: record-equal.
+    With seed_mode "fm" a third run on cuda takes an index without the
+    full SA (dense_sa_max=0: the path of a genome above 2^25 ranks), so
+    every SA lookup is the fm_sa_walk kernel; the kernels' counts are set
+    to 0 just before that run and returned."""
+    import torch
+
+    from speedseq_tpu_torch.align import pipeline
     from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.index.fm import FMIndex
+    from speedseq_tpu_torch.ops import fm_search
     from speedseq_tpu_torch.utils import synth
 
-    rd = synth.simulate(genome, PARITY_PAIRS, read_len=150,
-                        seed=args.seed + 100, kill_frac=0.01)
     f1, f2 = os.path.join(work, "p1.fq"), os.path.join(work, "p2.fq")
-    synth.write_fastq_pair(f1, f2, rd)
-    cfg = AlignConfig(batch_size=PARITY_BATCH)
+    if not os.path.exists(f1):
+        rd = synth.simulate(genome, PARITY_PAIRS, read_len=150,
+                            seed=args.seed + 100, kill_frac=0.01)
+        synth.write_fastq_pair(f1, f2, rd)
+    cfg = AlignConfig(batch_size=PARITY_BATCH, seed_mode=seed_mode)
+    tag = "" if seed_mode == "hash" else "_" + seed_mode
     t0 = time.perf_counter()
-    out_c = align_fastq(fasta, f1, f2, out_prefix=os.path.join(work, "pc"),
+    out_c = align_fastq(fasta, f1, f2,
+                        out_prefix=os.path.join(work, "pc" + tag),
                         config=cfg, device="cpu")
     t_cpu = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out_g = align_fastq(fasta, f1, f2, out_prefix=os.path.join(work, "pg"),
+    out_g = align_fastq(fasta, f1, f2,
+                        out_prefix=os.path.join(work, "pg" + tag),
                         config=cfg, device="cuda")
     t_gpu = time.perf_counter() - t0
-    counts = {}
-    for k in ("bam", "splitters.bam", "discordants.bam"):
-        hc, rc = read_records(out_c[k])
-        hg, rg = read_records(out_g[k])
-        check(hc.text == hg.text, f"parity: {k} headers differ")
-        check(len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)),
-              f"parity: {k} records differ between cpu and cuda")
-        counts[k] = len(rg)
-    emit({"phase": "parity", "pairs": PARITY_PAIRS,
-          "batch_size": PARITY_BATCH, "record_equal": True,
-          "records": counts, "cpu_s": t_cpu, "cuda_s": t_gpu})
+    counts = _same_triple(out_c, out_g, f"parity{tag}: cpu vs cuda")
+    rec = {"phase": "parity", "seed_mode": seed_mode, "pairs": PARITY_PAIRS,
+           "batch_size": PARITY_BATCH, "record_equal": True,
+           "records": counts, "cpu_s": t_cpu, "cuda_s": t_gpu}
+    launches = {}
+    if seed_mode == "fm":
+        load = pipeline._load_fm
+
+        def load_walk(reference, device, mode="hash"):
+            # the same index built without the full SA (dense_sa_max=0)
+            idx, _, kidx = load(reference, device, mode)
+            return idx, FMIndex.from_bwa_fm(
+                idx, pipeline._full_sa(reference, idx), device,
+                dense_sa_max=0), kidx
+
+        pipeline._load_fm = load_walk
+        try:
+            torch.cuda.synchronize()
+            fm_search.reset_launches()
+            t0 = time.perf_counter()
+            out_w = align_fastq(fasta, f1, f2,
+                                out_prefix=os.path.join(work, "pw" + tag),
+                                config=cfg, device="cuda")
+            torch.cuda.synchronize()
+            rec["cuda_walk_s"] = time.perf_counter() - t0
+            launches = dict(fm_search.LAUNCHES)
+        finally:
+            pipeline._load_fm = load
+        _same_triple(out_c, out_w, "parity_fm: cpu vs cuda (SA walk)")
+        rec["walk_index_record_equal"] = True
+        rec["walk_launches"] = launches
+        check(launches["fm_sa_walk"] > 0 and launches["fm_smem"] > 0,
+              f"the walk-index run did not launch both FM kernels "
+              f"({launches})")
+    emit(rec)
+    return launches
 
 
-def phase_align(work, fasta, genome, args):
+def phase_align(work, fasta, genome, args, seed_mode="hash"):
+    """The align cell through the CLI on cuda; ``seed_mode`` "fm" adds
+    ``--seed-mode fm`` (SMEM seeding: fm_smem; the 6 Mbp genome keeps its
+    full SA, so fm_sa_walk is off this path and its count is reported)."""
     import numpy as np
     import torch
 
@@ -213,31 +542,37 @@ def phase_align(work, fasta, genome, args):
     from speedseq_tpu_torch.align import pipeline
     from speedseq_tpu_torch.formats.sam import (
         FSECONDARY, FSUPPLEMENTARY, FUNMAP, FREAD1)
-    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.ops import fm_search, sw_banded
     from speedseq_tpu_torch.utils import synth
     from speedseq_tpu_torch.utils.metrics import metrics
 
     rd = synth.simulate(genome, PAIRS, read_len=150, seed=args.seed,
                         kill_frac=0.01)
     f1, f2 = os.path.join(work, "a1.fq"), os.path.join(work, "a2.fq")
-    synth.write_fastq_pair(f1, f2, rd)
-    prefix = os.path.join(work, "aln")
+    if not os.path.exists(f1):
+        synth.write_fastq_pair(f1, f2, rd)
+    prefix = os.path.join(work, "aln" if seed_mode == "hash" else "aln_fm")
     argv = ["align", "-R", "@RG\\tID:smoke\\tSM:smoke", "-o", prefix,
             "--batch-size", str(BATCH), "--device", "cuda",
-            fasta, f1, f2]
-    pipeline._host_cache.clear()   # the parity phase cached the reference
+            "--seed-mode", seed_mode, fasta, f1, f2]
+    pipeline._host_cache.clear()   # earlier phases cached the reference
     metrics.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sw_banded.reset_launches()
+    fm_search.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(sw_banded.LAUNCHES)
+    on_path = list(launches)
+    if seed_mode == "fm":
+        launches.update(fm_search.LAUNCHES)
+        on_path.append("fm_smem")
     check(rc == 0, f"align CLI returned {rc}")
-    for k, v in launches.items():
-        check(v > 0, f"{k} was not launched on the main path")
+    for k in on_path:
+        check(launches[k] > 0, f"{k} was not launched on the main path")
     snap = metrics.snapshot()
     device_s = float(snap.get("align.device_step_s", 0.0))
     index_s = float(snap.get("time.align.index_load", 0.0))
@@ -267,7 +602,8 @@ def phase_align(work, fasta, genome, args):
     killed_names = {rd.names[i] for i in killed}
     rescued = sum(1 for r in mapped if not r.flag & FREAD1
                   and r.qname in killed_names)
-    emit({"phase": "align", "pairs": PAIRS, "read_len": 150,
+    emit({"phase": "align", "seed_mode": seed_mode, "pairs": PAIRS,
+          "read_len": 150,
           "batch_size": BATCH, "wall_s": wall,
           "reads_per_s": n_reads / wall,
           "index_load_s": index_s,
@@ -934,7 +1270,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
 
-    from speedseq_tpu_torch.ops import sv_cluster, sw_banded
+    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
     from speedseq_tpu_torch.utils import synth
 
     smi = nvidia_smi("name,power.limit")
@@ -947,7 +1283,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    mods = (sw_banded, sv_cluster)
+    mods = (sw_banded, sv_cluster, fm_search)
     with ThreadPoolExecutor(len(mods)) as pool:    # one nvcc per source
         list(pool.map(lambda m: m.build(verbose_ptxas=True), mods))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -969,7 +1305,14 @@ def main() -> int:
         fasta = os.path.join(work, "genome.fa")
         synth.write_fasta(fasta, genome)
         phase_parity(work, fasta, genome, args)
+        records.update(phase_fm_kernels(work, fasta, genome, args,
+                                        clock_mhz * 1e6,
+                                        props.multi_processor_count))
+        walk_launches = phase_parity(work, fasta, genome, args, "fm")
         launches = phase_align(work, fasta, genome, args)
+        fm_launches = phase_align(work, fasta, genome, args, "fm")
+        launches["fm_smem"] = fm_launches["fm_smem"]
+        launches["fm_sa_walk"] = walk_launches["fm_sa_walk"]
         phase_realign(work, fasta)
         phase_var(work, args)
         phase_somatic(work, args)

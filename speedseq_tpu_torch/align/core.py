@@ -1,10 +1,13 @@
 """Alignment orchestration on the device: seeds → chains → pair selection →
 SW extension (+ mate rescue, extra XA placements) → packed outputs.
 
-Counterpart of speedseq_tpu/align/core.py for the hash seeding path.  Plain
-functions on tensors; every tensor of a call lies on one device, and the
-two banded Smith-Waterman kernels (ops/sw_banded.py) do the DP.  The host
-side (numpy unpacking, MAPQ) is unchanged.
+Counterpart of speedseq_tpu/align/core.py.  Plain functions on tensors;
+every tensor of a call lies on one device.  Phase 1 seeds either from the
+hash k-mer index (``kidx`` given, the default path) or by SMEM search on
+the FMD index (``kidx=None``, ``seed_mode="fm"``: the ``fm_smem`` and
+``fm_sa_walk`` kernels of ops/fm_search.py); the two banded
+Smith-Waterman kernels (ops/sw_banded.py) do the DP.  The host side (numpy
+unpacking, MAPQ) is unchanged.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch.nn.functional as Fn
 
 from ..index.fm import FMIndex, get_ref_window_packed
 from ..index.kmer import KmerIndex, find_seeds_hash
-from .chain import chain_seeds_nms
+from .chain import chain_seeds, chain_seeds_nms
+from .seeding import find_seeds
 from .sw import SWParams, banded_sw_pallas, banded_sw_score_pallas
 
 PAD = 44  # ref-window slack each side of the chain anchor diagonal
@@ -91,6 +95,20 @@ def _window_start(anchor_rpos, anchor_qpos):
     return ((anchor_rpos - anchor_qpos - PAD) >> 4) << 4
 
 
+def _chains(fm: FMIndex, reads, lengths, n_chains, stride, min_seed_len,
+            max_hits, kidx):
+    """Seed and chain: hash seeds + NMS chaining when ``kidx`` is given,
+    else SMEM seeds on the FMD index + the sorting chainer."""
+    L = reads.shape[1]
+    if kidx is not None:
+        seeds = find_seeds_hash(kidx, reads, lengths, k=min_seed_len,
+                                stride=stride, max_hits=max_hits)
+        return chain_seeds_nms(seeds, L, k=n_chains)
+    seeds = find_seeds(fm, reads, lengths, stride=stride,
+                       min_seed_len=min_seed_len, max_hits=max_hits)
+    return chain_seeds(seeds, L, k=n_chains)
+
+
 def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
                       stride: int = 8, min_seed_len: int = 19,
                       max_hits: int = 4, kidx: KmerIndex = None
@@ -98,11 +116,9 @@ def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
     """Phase 1 without any DP: chain weight (exact-match query coverage) is
     the selection score; the selected slots get real scores and cigars from
     the single extension pass."""
-    B, L = reads.shape
     reads = reads.to(i32)
-    seeds = find_seeds_hash(kidx, reads, lengths, k=min_seed_len,
-                            stride=stride, max_hits=max_hits)
-    chains = chain_seeds_nms(seeds, L, k=n_chains)
+    chains = _chains(fm, reads, lengths, n_chains, stride, min_seed_len,
+                     max_hits, kidx)
     diag = chains.anchor_rpos - chains.anchor_qpos
     return ScoredChains(
         pos=diag + chains.qspan_beg,
@@ -126,9 +142,8 @@ def score_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
     SW over all K chains per read."""
     B, L = reads.shape
     reads = reads.to(i32)
-    seeds = find_seeds_hash(kidx, reads, lengths, k=min_seed_len,
-                            stride=stride, max_hits=max_hits)
-    chains = chain_seeds_nms(seeds, L, k=n_chains)
+    chains = _chains(fm, reads, lengths, n_chains, stride, min_seed_len,
+                     max_hits, kidx)
     K = n_chains
     W = L + 2 * PAD + 16
     strand = chains.strand

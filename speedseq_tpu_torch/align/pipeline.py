@@ -2,7 +2,8 @@
 splitters + discordants.
 
 Counterpart of speedseq_tpu/align/pipeline.py (single device).  The device
-step is core.fused_align_leaves (both banded SW kernels); the host epilogue
+step is core.fused_align_leaves (hash or FM seeding, both banded SW
+kernels); the host epilogue
 (MAPQ, streaming dup marking, splitter/discordant extraction, external
 coordinate sort, BAM + BAI) is the JAX package's, copied.
 
@@ -29,7 +30,7 @@ from ..device import resolve_device
 from ..formats import bai, fastq
 from ..formats.sam import FDUP, SAMHeader
 from ..index.bwt import build_index, load_index
-from ..index.fm import FMIndex
+from ..index.fm import FMIndex, _reconstruct_sa
 from ..index.kmer import kmer_arrays_np, kmer_index_from_arrays
 from ..utils.metrics import metrics
 from ..utils.prefetch import prefetch
@@ -58,7 +59,7 @@ class AlignConfig:
     checkpoint: bool = False   # per-batch checkpoint journal
     resume: bool = False
     checkpoint_every: int = 8
-    seed_mode: str = "hash"    # only hash seeding is ported
+    seed_mode: str = "hash"    # "hash" (k-mer index) | "fm" (SMEM search)
     sort_max_records: int = 200_000  # external-sort chunk size
     distro_update_every: int = 32    # batches between insert-distro
     # re-estimates (bwa re-estimates per chunk; README.md:203-207)
@@ -75,17 +76,54 @@ class AlignConfig:
             self.sample = d.get("SM", self.sample)
 
 
-_host_cache: Dict[str, tuple] = {}
+_host_cache: Dict[Tuple[str, str], tuple] = {}
 
 
-def _load_fm(reference: str, device: torch.device):
-    """(BWAIndex, FMIndex, KmerIndex) for ``reference`` on ``device``:
-    loads the bwa index files if present, else builds them (the auto
-    `bwa index` behaviour, bin/speedseq:386-391).  The host arrays are
-    cached per process (one reference at a time); the device tensors are
-    made per call.  The hash path reads no suffix array, so none is
-    reconstructed or cached."""
-    key = os.path.abspath(reference)
+def _sa_cache_path(reference: str) -> str:
+    """On-disk cache of the full suffix array, keyed by the reference
+    file's path, mtime and size."""
+    import hashlib
+
+    st = os.stat(reference)
+    key = hashlib.sha1(
+        f"{os.path.abspath(reference)}:{st.st_mtime_ns}:{st.st_size}"
+        .encode()).hexdigest()[:16]
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "speedseq_tpu_torch", f"safull-{key}.npy")
+
+
+def _full_sa(reference: str, idx) -> np.ndarray:
+    """The full SA of ``idx`` from the disk cache, else reconstructed from
+    the index (and cached; a failed write only costs the next run)."""
+    path = _sa_cache_path(reference)
+    if os.path.exists(path):
+        try:
+            sa = np.load(path)
+            if sa.shape == (idx.seq_len + 1,):
+                return sa
+        except (OSError, ValueError):
+            pass
+    sa = _reconstruct_sa(idx).astype(np.int32)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "wb") as fh:
+            np.save(fh, sa)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return sa
+
+
+def _load_fm(reference: str, device: torch.device, seed_mode: str = "hash"):
+    """(BWAIndex, FMIndex, KmerIndex or None) for ``reference`` on
+    ``device``: loads the bwa index files if present, else builds them (the
+    auto `bwa index` behaviour, bin/speedseq:386-391).  The hash path adds
+    the k-mer index and reads no suffix array; the FM path adds the FMD
+    arrays and the full SA (cached on disk).  The host arrays are cached per
+    process (one reference and mode at a time); the device tensors are made
+    per call."""
+    key = (os.path.abspath(reference), seed_mode)
     mtime = os.stat(reference).st_mtime_ns
     hit = _host_cache.get(key)
     if hit is None or hit[0] != mtime:
@@ -93,10 +131,15 @@ def _load_fm(reference: str, device: torch.device):
             idx = build_index(reference)
         else:
             idx = load_index(reference)
-        hit = (mtime, idx, kmer_arrays_np(idx.pac))
+        host = (_full_sa(reference, idx) if seed_mode == "fm"
+                else kmer_arrays_np(idx.pac))
+        hit = (mtime, idx, host)
         _host_cache.clear()
         _host_cache[key] = hit
-    _, idx, (starts, positions, fp, bits) = hit
+    _, idx, host = hit
+    if seed_mode == "fm":
+        return idx, FMIndex.from_bwa_fm(idx, host, device), None
+    starts, positions, fp, bits = host
     kidx = kmer_index_from_arrays(starts, positions, fp, len(idx.pac),
                                   19, bits, device)
     return idx, FMIndex.from_bwa(idx, device), kidx
@@ -172,10 +215,10 @@ def align_stream(
     t0 = time.time()
     cfg = config
     dev = resolve_device(device)
-    if cfg.seed_mode != "hash":
-        raise NotImplementedError("only seed_mode='hash' is ported")
+    if cfg.seed_mode not in ("hash", "fm"):
+        raise ValueError(f"unknown seed_mode {cfg.seed_mode!r}")
     with metrics.timer("align.index_load"):
-        idx, fm, kidx = _load_fm(reference, dev)
+        idx, fm, kidx = _load_fm(reference, dev, cfg.seed_mode)
 
     distro: Optional[InsertDistro] = None
     if cfg.insert_override is not None:

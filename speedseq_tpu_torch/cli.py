@@ -3,8 +3,7 @@
 All five subcommands are ported: ``align``, ``realign``, ``var``,
 ``somatic`` and ``sv``.  Their flags are those of the JAX package's CLI
 (which mirror bin/speedseq:235-295, :1690-1754, :540-590, :882-946 and
-:1205-1300) plus ``--device`` (cuda unless ``--device cpu``).  Only
-``--seed-mode fm`` is refused (exit 2): FM seeding is not ported.
+:1205-1300) plus ``--device`` (cuda unless ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -59,14 +58,6 @@ def _threads(args, kcfg) -> int:
     return args.t if args.t is not None else kcfg.threads
 
 
-def _refuse_fm(args) -> bool:
-    """Print a note and return True for --seed-mode fm (not ported)."""
-    if args.seed_mode != "hash":
-        print("error: --seed-mode fm is not ported yet", file=sys.stderr)
-        return True
-    return False
-
-
 def _align_config(args):
     from .align.pipeline import AlignConfig
 
@@ -89,8 +80,6 @@ def cmd_align(args) -> int:
     if not args.R:
         print("error: -R readgroup string is required", file=sys.stderr)
         return 1
-    if _refuse_fm(args):
-        return 2
     out = args.o or os.path.basename(args.fastq1).split(".")[0]
     outputs = align_fastq(
         args.reference,
@@ -109,8 +98,6 @@ def cmd_align(args) -> int:
 def cmd_realign(args) -> int:
     from .align.realign import realign
 
-    if _refuse_fm(args):
-        return 2
     out = args.o or os.path.basename(args.bams[0]).rsplit(".", 1)[0] + ".realign"
     outputs = realign(
         args.reference, args.bams, out, config=_align_config(args),
@@ -280,7 +267,8 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--batch-size", type=int, default=None,
                         help="device batch size [config or 512]")
         sp.add_argument("--seed-mode", choices=["hash", "fm"], default="hash",
-                        help="seeding structure (only hash is ported)")
+                        help="seeding structure: k-mer hash index or "
+                        "FM-index SMEM search [hash]")
         sp.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
 

@@ -1,0 +1,366 @@
+"""FM (SMEM) seeding of the port against the JAX package, on the CPU: the
+FMD arrays of ``FMIndex.from_bwa_fm``, ``occ_all`` over every rank
+(across ``primary``), both extensions for every base, ``sa_lookup`` dense
+and by the LF walk, ``find_seeds``, ``chain_seeds`` (planted weight
+ties), ``weight_candidates`` in the FM branch, and ``align_fastq(
+seed_mode="fm")`` record-equal to the JAX run; then the CLI's ``align``
+and ``realign --seed-mode fm``.  Integers are compared bit-equal.
+
+The JAX align run takes its Pallas kernels in interpret mode (test-side
+monkeypatches, as tests/test_torch_align.py does); batch_size=60 keeps it
+off the conftest's 8-device mesh path.  The insert-size estimate on the
+device is the hash path's code and is held there
+(tests/test_torch_align.py, tests/test_torch_core.py).  The genomes are random
+(``utils/synth.py``), written under ``tmp_path``."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import speedseq_tpu.align.pipeline as jpipe
+import speedseq_tpu.ops.sw_pallas as spl
+from speedseq_tpu.align import chain as jchain
+from speedseq_tpu.align import core as jcore
+from speedseq_tpu.align import seeding as jseed
+from speedseq_tpu.formats.bam import read_bam
+from speedseq_tpu.index import bwt as jbwt
+from speedseq_tpu.index import fm as jfm
+from speedseq_tpu_torch import cli
+from speedseq_tpu_torch.align import chain as tchain
+from speedseq_tpu_torch.align import core as tcore
+from speedseq_tpu_torch.align import pipeline as tpipe
+from speedseq_tpu_torch.align import seeding as tseed
+from speedseq_tpu_torch.index import fm as tfm
+from speedseq_tpu_torch.index.bwt import build_index, load_index
+from speedseq_tpu_torch.index.suffix import suffix_array
+from speedseq_tpu_torch.ops import fm_search
+from speedseq_tpu_torch.utils import synth
+
+torch.set_num_threads(1)
+
+BATCH = 60
+# -I pinned to the simulator's insert (mean 320, sd 50): every batch then
+# takes the same device-step inputs, so the JAX step compiles once, not
+# twice (with and without an estimated distro, ~100 s each here)
+INSERT = (320.0, 50.0, 520, 120)
+OUTS = ("bam", "splitters.bam", "discordants.bam")
+FM_FIELDS = ("count", "occ_ckpt", "bwt", "sa_mark", "sa_ckpt", "sa_vals",
+             "sa_dense")
+
+
+def _fmd_text(pac):
+    """The text the index is built over: forward + reverse complement."""
+    return np.concatenate([pac, 3 - pac[::-1]]).astype(np.uint8)
+
+
+def _np(x):
+    a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def _eq(j, t):
+    return np.array_equal(_np(j), t.numpy())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _home(tmp_path_factory):
+    """Both packages' SA disk caches go to a temporary HOME."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("HOME", str(tmp_path_factory.mktemp("home")))
+    yield
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def index(tmp_path_factory):
+    """One random 13 kbp genome: the port's index files, read back by the
+    JAX package, and both packages' FMD indexes (dense and walk)."""
+    d = tmp_path_factory.mktemp("tfm")
+    g = synth.make_genome((6000, 4000, 3000), seed=5)
+    fa = str(d / "g.fa")
+    synth.write_fasta(fa, g)
+    build_index(fa)
+    jidx = jbwt.load_index(fa)
+    jsa = jfm._reconstruct_sa(jidx)
+    tidx = load_index(fa)
+    return {
+        "genome": g, "jidx": jidx, "tidx": tidx, "jsa": jsa,
+        "J": jfm.FMIndex.from_bwa(jidx, sa_full=jsa),
+        "T": tfm.FMIndex.from_bwa_fm(tidx),
+        "Jw": jfm.FMIndex.from_bwa(jidx, sa_full=jsa, dense_sa_max=0),
+        "Tw": tfm.FMIndex.from_bwa_fm(tidx, dense_sa_max=0),
+    }
+
+
+@pytest.fixture(scope="module")
+def batch(index):
+    """Reads (B, 112) of 100 bp from the genome, every 7th cut to 60 bp,
+    with an N, a seed-killed tenth and a random read."""
+    rd = synth.simulate(index["genome"], 64, read_len=100, seed=7,
+                        kill_frac=0.1)
+    reads = np.full((64, 112), 4, np.uint8)
+    reads[:, :100] = rd.seq1
+    lens = np.full(64, 100, np.int32)
+    lens[::7] = 60
+    reads[::7, 60:] = 4
+    reads[5, 30] = 4
+    reads[9, :100] = np.random.default_rng(3).integers(0, 4, 100)
+    return reads, lens
+
+
+def test_sa_reconstruction(index):
+    """The port's rank-sample walk, the JAX package's serial LF walk and a
+    suffix sort of the FMD text give the same suffix array."""
+    tsa = tfm._reconstruct_sa(index["tidx"])
+    assert np.array_equal(tsa, index["jsa"])
+    assert np.array_equal(tsa, suffix_array(_fmd_text(index["tidx"].pac)))
+
+
+@pytest.mark.parametrize("field", FM_FIELDS + ("scalars",))
+def test_fm_arrays_equal(index, field):
+    J, T = index["J"], index["T"]
+    if field == "scalars":
+        assert (T.primary, T.seq_len, T.l_pac) == (
+            int(J.primary), int(J.seq_len), int(J.l_pac))
+        assert index["Tw"].sa_dense is None and index["Jw"].sa_dense is None
+    else:
+        assert getattr(T, field).dtype == torch.int32
+        assert _eq(getattr(J, field), getattr(T, field))
+
+
+def test_hash_index_carries_no_fm_arrays(index):
+    T = tfm.FMIndex.from_bwa(index["tidx"])
+    assert all(getattr(T, f) is None for f in FM_FIELDS)
+    assert torch.equal(T.ref_pack, index["T"].ref_pack)
+
+
+def test_occ_all_and_bwt_char_every_rank(index):
+    J, T = index["J"], index["T"]
+    k = np.arange(T.seq_len + 2, dtype=np.int32)
+    assert _eq(jfm.occ_all(J, jnp.asarray(k)), tfm.occ_all(T, torch.from_numpy(k)))
+    rows = k[(k <= T.seq_len) & (k != T.primary)]
+    assert _eq(jfm.bwt_char(J, jnp.asarray(rows)),
+               tfm.bwt_char(T, torch.from_numpy(rows)))
+
+
+@pytest.mark.parametrize("c", range(5))
+@pytest.mark.parametrize("fn", ["backward_ext", "forward_ext"])
+def test_extension(index, fn, c):
+    """Random bi-intervals, 64 of them with k straddling primary, extended
+    by base c (4 = N): k, l, s bit-equal."""
+    J, T = index["J"], index["T"]
+    rng = np.random.default_rng(c)
+    n = T.seq_len
+    k = rng.integers(0, n, 4000).astype(np.int32)
+    k[:64] = T.primary - 32 + np.arange(64)
+    s = np.minimum(rng.integers(0, 50, 4000), n + 1 - k).astype(np.int32)
+    l = rng.integers(0, n, 4000).astype(np.int32)
+    cc = np.full(4000, c, np.int32)
+    got = getattr(tfm, fn)(T, tfm.BiInterval(*(torch.from_numpy(a) for a in
+                                               (k, l, s))), torch.from_numpy(cc))
+    want = getattr(jfm, fn)(J, jfm.BiInterval(*(jnp.asarray(a) for a in
+                                                (k, l, s))), jnp.asarray(cc))
+    assert all(_eq(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_sa_lookup(index, dense):
+    J, T = (index["J"], index["T"]) if dense else (index["Jw"], index["Tw"])
+    r = np.arange(1, T.seq_len + 1, dtype=np.int32)
+    got = tseed.sa_lookup(T, torch.from_numpy(r))
+    assert _eq(jfm.sa_lookup(J, jnp.asarray(r)), got)
+    assert np.array_equal(got.numpy(), index["jsa"][1:])
+    if not dense:
+        assert torch.equal(fm_search.fm_sa_walk(T, torch.from_numpy(r)), got)
+
+
+@pytest.mark.parametrize("n_ranks", [2**31, 6_200_000_001])
+def test_from_bwa_fm_refuses_int32_overflow(n_ranks):
+    """More than 2^31 - 1 ranks (the second: a whole human genome's FMD
+    index) would wrap the int32 rank arithmetic: the constructor refuses
+    such an index before it reads any array (a stub BWAIndex with only
+    the counts)."""
+    from types import SimpleNamespace
+
+    stub = SimpleNamespace(L2=np.array([0, 0, 0, 0, n_ranks - 1], np.int64))
+    with pytest.raises(ValueError, match="int32"):
+        tfm.FMIndex.from_bwa_fm(stub, sa_full=np.zeros(1, np.int64))
+
+
+@pytest.mark.parametrize("stride,min_seed_len,dense", [
+    (8, 19, True), (8, 19, False), (5, 15, True)])
+def test_find_seeds(index, batch, stride, min_seed_len, dense):
+    J, T = (index["J"], index["T"]) if dense else (index["Jw"], index["Tw"])
+    reads, lens = batch
+    want = jseed.find_seeds(J, jnp.asarray(reads), jnp.asarray(lens),
+                            stride=stride, min_seed_len=min_seed_len)
+    got = tseed.find_seeds(T, torch.from_numpy(reads), torch.from_numpy(lens),
+                           stride=stride, min_seed_len=min_seed_len)
+    assert all(_eq(a, b) for a, b in zip(want, got))
+    assert 0 < int(got.valid.sum()) and int(got.strand[got.valid].sum()) > 0
+
+
+def test_fm_smem_twin_lanes(index, batch):
+    """The kernel's twin gives SMEMs that are exact matches of the genome
+    text at every hit (an oracle independent of the JAX package)."""
+    T = index["T"]
+    reads, lens = batch
+    starts = tseed.grid(reads.shape[1], 8, "cpu")
+    lanes = fm_search.fm_smem(T, torch.from_numpy(reads),
+                              torch.from_numpy(lens), starts)
+    text = _fmd_text(index["tidx"].pac)
+    sa = index["jsa"]
+    G = starts.shape[0]
+    checked = 0
+    for i in np.flatnonzero(lanes.alive0.numpy() & (lanes.s.numpy() > 0)):
+        b = i // G
+        qb, qe, k = int(lanes.qbeg[i]), int(lanes.qend[i]), int(lanes.k[i])
+        pos = sa[k]
+        assert np.array_equal(text[pos:pos + qe - qb], reads[b, qb:qe])
+        checked += 1
+    assert checked > 100
+
+
+def _planted_seeds(rng, B=64, S=24):
+    """Seeds on four diagonals 4 kb apart (one chain each), all 20 bp at
+    distinct read offsets, so chain weights are 20 × members and tie."""
+    diag = rng.choice([1000, 5000, 9000, 13000], size=(B, S))
+    qpos = np.tile(np.arange(S, dtype=np.int32) * 25 % 130, (B, 1))
+    length = np.full((B, S), 20, np.int32)
+    strand = rng.integers(0, 2, (B, S)).astype(np.int32)
+    valid = rng.random((B, S)) < 0.6
+    rpos = (diag + qpos - 151).astype(np.int32)
+    return (rpos, qpos, length, strand,
+            rng.integers(1, 5, (B, S)).astype(np.int32), valid)
+
+
+def test_chain_seeds_planted_ties():
+    cols = _planted_seeds(np.random.default_rng(11))
+    want = jchain.chain_seeds(jseed.Seeds(*(jnp.asarray(c) for c in cols)),
+                              151)
+    got = tchain.chain_seeds(tseed.Seeds(*(torch.from_numpy(c) for c in cols)),
+                             151)
+    assert all(_eq(a, b) for a, b in zip(want, got))
+    w = got.weight.numpy()
+    assert ((w[:, 1:] == w[:, :-1]) & (w[:, 1:] > 0)).any(), "no tie planted"
+
+
+def test_chain_seeds_of_found_seeds(index, batch):
+    reads, lens = batch
+    js = jseed.find_seeds(index["J"], jnp.asarray(reads), jnp.asarray(lens))
+    ts = tseed.find_seeds(index["T"], torch.from_numpy(reads),
+                          torch.from_numpy(lens))
+    L = reads.shape[1]
+    assert all(_eq(a, b) for a, b in
+               zip(jchain.chain_seeds(js, L), tchain.chain_seeds(ts, L)))
+
+
+def test_weight_candidates_fm_branch(index, batch):
+    reads, lens = batch
+    want = jcore.weight_candidates(index["J"], jnp.asarray(reads),
+                                   jnp.asarray(lens), kidx=None)
+    got = tcore.weight_candidates(index["T"], torch.from_numpy(reads),
+                                  torch.from_numpy(lens), kidx=None)
+    assert all(_eq(a, b) for a, b in zip(want, got))
+
+
+def test_load_fm_caches_the_sa(tmp_path, monkeypatch):
+    """fm: the full SA is reconstructed once and read back from the disk
+    cache; hash: no SA, no FM arrays."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    g = synth.make_genome((3000, 2000, 1500), seed=2)
+    fa = str(tmp_path / "g.fa")
+    synth.write_fasta(fa, g)
+    tpipe._host_cache.clear()
+    idx, fm, kidx = tpipe._load_fm(fa, "cpu", "fm")
+    assert kidx is None and fm.sa_dense is not None
+    cache = tpipe._sa_cache_path(fa)
+    assert os.path.exists(cache)
+    want = suffix_array(_fmd_text(idx.pac))
+    assert np.array_equal(np.load(cache), want)
+    tpipe._host_cache.clear()
+    _, fm2, _ = tpipe._load_fm(fa, "cpu", "fm")
+    assert np.array_equal(fm2.sa_dense.numpy(), want)
+    os.remove(cache)
+    tpipe._host_cache.clear()
+    _, fmh, kh = tpipe._load_fm(fa, "cpu", "hash")
+    assert kh is not None and fmh.bwt is None and fmh.sa_dense is None
+    assert not os.path.exists(cache)
+    tpipe._host_cache.clear()
+
+
+# ------------------------------------------------------------ end to end
+
+@pytest.fixture(scope="module")
+def align_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tfmalign")
+    g = synth.make_genome(seed=11, n_del=12)
+    fa = str(d / "g.fa")
+    synth.write_fasta(fa, g)
+    rd = synth.simulate(g, 360, read_len=100, seed=13, kill_frac=0.05,
+                        protect_mod=BATCH)
+    synth.write_fastq_pair(str(d / "r1.fq"), str(d / "r2.fq"), rd)
+    return d, fa
+
+
+@pytest.fixture(scope="module")
+def both_runs(align_inputs):
+    d, fa = align_inputs
+    f1, f2 = str(d / "r1.fq"), str(d / "r2.fq")
+    port = tpipe.align_fastq(
+        fa, f1, f2, out_prefix=str(d / "port"),
+        config=tpipe.AlignConfig(batch_size=BATCH, seed_mode="fm",
+                                 insert_override=INSERT),
+        device="cpu")
+    mp = pytest.MonkeyPatch()
+    oc, os_ = spl.sw_pallas_cigar, spl.sw_pallas
+    mp.setattr(spl, "sw_pallas_cigar",
+               lambda *a, interpret=False, **k: oc(*a, interpret=True, **k))
+    mp.setattr(spl, "sw_pallas",
+               lambda *a, interpret=False, **k: os_(*a, interpret=True, **k))
+    mp.setattr(jpipe, "_pallas_ok", lambda: True)
+    try:
+        ref = jpipe.align_fastq(
+            fa, f1, f2, out_prefix=str(d / "jax"),
+            config=jpipe.AlignConfig(batch_size=BATCH, seed_mode="fm",
+                                     insert_override=INSERT))
+    finally:
+        mp.undo()
+    return ref, port
+
+
+@pytest.mark.parametrize("out", OUTS)
+def test_fm_align_record_equal(both_runs, out):
+    ref, port = both_runs
+    hj, rj = read_bam(ref[out])
+    hp, rp = read_bam(port[out])
+    strip = lambda t: [l for l in t.splitlines() if not l.startswith("@PG")]
+    assert strip(hj.text) == strip(hp.text)
+    assert len(rj) == len(rp) and rj
+    for a, b in zip(rj, rp):
+        assert a == b, (a.qname, a.flag)
+
+
+def test_fm_cli_align_and_realign(align_inputs, tmp_path):
+    """align --seed-mode fm on the CPU writes the triple of align_fastq;
+    realign --seed-mode fm of it keeps every primary read."""
+    d, fa = align_inputs
+    pre = str(tmp_path / "cli")
+    assert cli.main(["align", "-R", "@RG\\tID:1\\tSM:sample", "--seed-mode",
+                     "fm", "--device", "cpu", "--batch-size", str(BATCH),
+                     "-o", pre, fa, str(d / "r1.fq"), str(d / "r2.fq")]) == 0
+    _, recs = read_bam(pre + ".bam")
+    prim = {(r.qname, r.flag & 0xC0) for r in recs if not r.flag & 0x900}
+    assert len(prim) == 720
+    re_pre = str(tmp_path / "re")
+    assert cli.main(["realign", "--seed-mode", "fm", "--device", "cpu",
+                     "--batch-size", str(BATCH), "-o", re_pre, fa,
+                     pre + ".bam"]) == 0
+    _, out = read_bam(re_pre + ".bam")
+    assert {(r.qname, r.flag & 0xC0) for r in out
+            if not r.flag & 0x900} == prim
+    assert all(os.path.exists(re_pre + s + ".bai") for s in
+               (".bam", ".splitters.bam", ".discordants.bam"))

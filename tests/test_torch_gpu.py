@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain twins, and var's, sv's,
-somatic's and realign's device paths on cuda against cpu, on the card
+"""The port's CUDA kernels against their plain twins, and FM seeding's,
+var's, sv's, somatic's and realign's device paths on cuda against cpu, on
+the card
 (marked ``gpu``; they skip without a CUDA device and count as not run).
 Run on a
 machine with a card (the conftest imports jax, so leave it out there):
@@ -299,3 +300,119 @@ def test_realign_cuda_matches_cpu(tumor_normal_bams):
         assert len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)), k
         assert os.path.exists(outs["cuda"][k] + ".bai")
     assert len(read_bam(outs["cuda"]["bam"])[1]) >= 3000
+
+
+@pytest.fixture(scope="module")
+def fm_case(tmp_path_factory):
+    """A random 60 kbp genome's FMD index (dense and walk, on the card)
+    and 600 reads of 151 bp: every 5th cut short, some with Ns, some
+    random, some seed-killed."""
+    _need_card()
+    from speedseq_tpu_torch.index.bwt import build_index
+    from speedseq_tpu_torch.index.fm import FMIndex
+    from speedseq_tpu_torch.utils import synth
+
+    d = tmp_path_factory.mktemp("gfm")
+    g = synth.make_genome(seed=21, n_del=4)
+    fa = str(d / "g.fa")
+    synth.write_fasta(fa, g)
+    idx = build_index(fa)
+    rd = synth.simulate(g, 600, read_len=151, seed=22, kill_frac=0.1)
+    rng = np.random.default_rng(23)
+    reads = rd.seq2.copy()
+    lens = np.full(600, 151, np.int32)
+    lens[::5] = rng.integers(20, 151, len(lens[::5]))
+    for i in range(0, 600, 5):
+        reads[i, lens[i]:] = 4
+    reads[1::13, rng.integers(0, 151)] = 4
+    reads[2::17] = rng.integers(0, 4, (len(reads[2::17]), 151))
+    fms = {dense: FMIndex.from_bwa_fm(idx, device="cuda",
+                                      dense_sa_max=1 << 25 if dense else 0)
+           for dense in (True, False)}
+    return fa, reads, lens, fms
+
+
+@pytest.mark.parametrize("stride", [8, 5])
+def test_fm_smem_kernel_matches_twin(fm_case, stride):
+    _need_card()
+    from speedseq_tpu_torch.align.seeding import grid
+    from speedseq_tpu_torch.ops import fm_search
+
+    _, reads, lens, fms = fm_case
+    r, l = torch.from_numpy(reads).cuda(), torch.from_numpy(lens).cuda()
+    starts = grid(reads.shape[1], stride, "cuda")
+    before = fm_search.LAUNCHES["fm_smem"]
+    got = fm_search.fm_smem(fms[True], r, l, starts)
+    torch.cuda.synchronize()
+    assert fm_search.LAUNCHES["fm_smem"] == before + 1
+    want = fm_search.fm_smem_plain(fms[True], r, l, starts)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(got.alive0.sum()) > 0
+
+
+def test_fm_sa_walk_kernel_matches_twin_and_dense(fm_case):
+    """Every rank of the index (the sentinel row included) through the
+    walk kernel against its twin and the full SA."""
+    _need_card()
+    from speedseq_tpu_torch.ops import fm_search
+
+    _, _, _, fms = fm_case
+    walk = fms[False]
+    ranks = torch.arange(1, walk.seq_len + 1, dtype=torch.int32,
+                         device="cuda")
+    before = fm_search.LAUNCHES["fm_sa_walk"]
+    got = fm_search.fm_sa_walk(walk, ranks)
+    torch.cuda.synchronize()
+    assert fm_search.LAUNCHES["fm_sa_walk"] == before + 1
+    assert torch.equal(got, fm_search.fm_sa_walk_plain(walk, ranks))
+    assert torch.equal(got, fms[True].sa_dense[1:])
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_fm_find_seeds_cuda_matches_cpu(fm_case, dense):
+    _need_card()
+    from speedseq_tpu_torch.align.chain import chain_seeds
+    from speedseq_tpu_torch.align.seeding import find_seeds
+    from speedseq_tpu_torch.index.fm import FMIndex
+
+    _, reads, lens, fms = fm_case
+    fm = fms[dense]
+    fm_cpu = FMIndex(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                       for t in fm))
+    got = find_seeds(fm, torch.from_numpy(reads).cuda(),
+                     torch.from_numpy(lens).cuda())
+    want = find_seeds(fm_cpu, torch.from_numpy(reads), torch.from_numpy(lens))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(got.valid.sum()) > 0
+    for a, b in zip(chain_seeds(got, 151), chain_seeds(want, 151)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_fm_align_cuda_matches_cpu(fm_case, tmp_path):
+    """align_fastq(seed_mode="fm") on cuda against cpu: the BAM triples
+    record-equal, headers equal; the FM kernel ran."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.formats.bam import read_bam
+    from speedseq_tpu_torch.ops import fm_search
+    from speedseq_tpu_torch.utils import synth
+
+    fa = fm_case[0]
+    g = synth.make_genome(seed=21, n_del=4)
+    rd = synth.simulate(g, 1000, read_len=150, seed=24, kill_frac=0.02)
+    f1, f2 = str(tmp_path / "1.fq"), str(tmp_path / "2.fq")
+    synth.write_fastq_pair(f1, f2, rd)
+    cfg = AlignConfig(batch_size=500, seed_mode="fm")
+    before = fm_search.LAUNCHES["fm_smem"]
+    outs = {dev: align_fastq(fa, f1, f2, out_prefix=str(tmp_path / dev),
+                             config=cfg, device=dev)
+            for dev in ("cpu", "cuda")}
+    assert fm_search.LAUNCHES["fm_smem"] == before + 4
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        hc, rc = read_bam(outs["cpu"][k])
+        hg, rg = read_bam(outs["cuda"][k])
+        assert hc.text == hg.text
+        assert len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)), k
+    assert len(read_bam(outs["cuda"]["bam"])[1]) >= 2000

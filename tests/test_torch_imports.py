@@ -22,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(
     if not m.name.endswith("__main__")]
 assert {"speedseq_tpu_torch.align.realign", "speedseq_tpu_torch.var.somatic",
         "speedseq_tpu_torch.var.annotate", "speedseq_tpu_torch.formats.cram",
-        "speedseq_tpu_torch.formats.bamutil"} <= set(names)
+        "speedseq_tpu_torch.formats.bamutil", "speedseq_tpu_torch.ops.fm_search",
+        "speedseq_tpu_torch.align.seeding"} <= set(names)
 for n in names:
     importlib.import_module(n)
 assert not any(k == "speedseq_tpu" or k.startswith("speedseq_tpu.")
@@ -105,12 +106,14 @@ def test_cli_align_flags_and_unported_subcommands(capsys):
     assert args.device == "cuda" and args.seed_mode == "hash"
     cfg = cli._align_config(args)
     assert cfg.rg_id == "a" and cfg.sample == "b"
-    # every subcommand is ported; FM seeding is the one thing refused
+    # every subcommand is ported, FM seeding included: nothing is refused
     for sub in ("realign", "var", "somatic", "sv"):
         assert cli.build_parser().parse_args(
             [sub, "-K", "k.cfg", "-B", "x.bam"] if sub == "sv" else
             [sub, "-K", "k.cfg", "ref.fa", "a.bam", "b.bam"]).device == "cuda"
     for sub in ("align", "realign"):
-        assert cli.main([sub, "--seed-mode", "fm", "-R", "@RG\\tID:a",
-                         "ref.fa", "in"]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        fm = cli.build_parser().parse_args(
+            [sub, "--seed-mode", "fm", "-R", "@RG\\tID:a", "ref.fa", "in"])
+        assert cli._align_config(fm).seed_mode == "fm"
+    assert not hasattr(cli, "_refuse_fm")
+    assert "not ported" not in capsys.readouterr().err

@@ -319,8 +319,22 @@ def test_cli_help_and_dispatch():
 
 
 @pytest.mark.parametrize("sub", ["align", "realign"])
-def test_cli_refuses_fm_seeding(sub, capsys):
+def test_cli_refuses_fm_seeding(sub, capsys, monkeypatch):
+    """FM seeding is ported: ``--seed-mode fm`` is no longer refused (exit
+    2); the CLI hands it to the aligner in its config."""
+    import speedseq_tpu_torch.align.pipeline as tp
+    import speedseq_tpu_torch.align.realign as tr
+
+    seen = {}
+
+    def fake(*a, config=None, **k):
+        seen["seed_mode"] = config.seed_mode
+        return {"bam": "x.bam"}
+
+    monkeypatch.setattr(tp, "align_fastq", fake)
+    monkeypatch.setattr(tr, "realign", fake)
     args = [sub, "--seed-mode", "fm", "-R", "@RG\\tID:a\\tSM:b", "-o", "x",
             "ref.fa", "in"]
-    assert cli.main(args) == 2
-    assert "--seed-mode fm is not ported yet" in capsys.readouterr().err
+    assert cli.main(args) == 0
+    assert seen == {"seed_mode": "fm"}
+    assert "not ported" not in capsys.readouterr().err
