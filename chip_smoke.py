@@ -1,6 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --fm-smem-against OTHER.cu [OTHER.cu ...]
+
+The second form runs only the device and build phases and fm_against:
+fm_smem and fm_sa_walk of this checkout's fm_search.cu against the given
+builds of that source, bit-equal to the twins and timed in turns at the
+fm kernels phase's inputs (both index sizes), then the nvidia-smi line and
+the last line.
 
 Phases, each printing one JSON line:
 
@@ -15,7 +22,11 @@ Phases, each printing one JSON line:
            (timed), then fm_smem against its twin (bit-equal) at 8,192
            reads x 19 anchors = 155,648 lanes and fm_sa_walk against its
            twin and the full SA at 622,592 ranks on an index without the
-           full SA: kernel / twin / bound times, extension steps run
+           full SA: kernel / twin / bound times, extension steps run; then
+           both again beyond the L2, on the FMD index of a random 2^27-code
+           half-text and its reverse complement (2^28 + 1 ranks, SA by
+           prefix doubling on the card), fm_smem on 8,192 reads of 150 bp
+           cut from the half-text at 0.2 % substitutions
   parity   (fm) the same 2,048 pairs with seed_mode="fm" on cpu and on
            cuda, record-equal, and once more on cuda with an index
            without the full SA (the SA-walk path), record-equal too
@@ -97,7 +108,7 @@ SV_BP, SV_PAIRS = (1_500_000, 500_000), 200_000   # 30x of 2 × 150 bp
 SV_SLACK = 150                     # breakpoint bar of tests/test_sv.py:126
 SV_PILE = 4_096                    # members of the combine phase's cluster
 FM_READS = 8_192                   # fm kernels: a batch's reads x 19 anchors
-FM_BIG_RANKS = 1 << 28             # fm_sa_walk beyond L2: a random text's index
+FM_BIG_HALF = 1 << 27              # beyond L2: FMD index of a random half-text
 
 
 def emit(obj) -> None:
@@ -187,15 +198,74 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     """The FM index loaded with no SA cache (timed), then fm_smem against
     its twin (bit-equal) at the align cell's shape, 8,192 reads x 19
     anchors, and fm_sa_walk against its twin and the full SA at 4 ranks
-    per lane, on an index built without the full SA; returns both
+    per lane, on an index built without the full SA; then both again on
+    an index beyond the L2 (the FMD of a random half-text, 2^28 + 1
+    ranks), fm_smem on 8,192 reads cut from that half-text; returns both
     kernels' records (launches filled in later)."""
+    import torch
+
+    fm_in = _fm_inputs(work, fasta, genome, args)
+    fm, walk_fm, reads, lens, starts = (fm_in[k] for k in (
+        "fm", "walk_fm", "reads", "lens", "starts"))
+    records = {}
+    got, small = _smem_case(fm, reads, lens, starts, clock_hz, n_sms)
+    records["fm_smem"] = {
+        "name": "fm_smem", "route": "cuda",
+        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
+        "replaces": "speedseq_tpu/align/seeding.py:109",
+        "launches": 0, "max_abs_err": small["max_abs_err"],
+        "ms": small["ms"], "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+        "library_ms": None}
+    emit({"phase": "kernels", "kernel": "fm_smem",
+          "index": "align genome, L2-resident", **small,
+          "index_load_cold_s": fm_in["cold_load_s"], "seq_len": fm.seq_len})
+
+    # the walk: 4 ranks per lane from the lanes' intervals (every lane,
+    # not only the hits a seed keeps), on the index without the full SA;
+    # its 4.5 MB of occ and BWT stay in L2
+    ranks = _walk_ranks(got, fm)
+    small = _walk_case(walk_fm, ranks, fm.sa_dense, clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "fm_sa_walk",
+          "index": "align genome, L2-resident", "seq_len": fm.seq_len,
+          **small})
+
+    # beyond the L2 (a genome shard's index; the walk's own regime, above
+    # 2^25 ranks): the FMD index of a random half-text, occ and BWT 4x
+    # the L2; fm_smem on reads cut from the half-text, the walk at as
+    # many uniform ranks as above
+    big = _big_fm_inputs(args, ranks.numel())
+    _, bigs = _smem_case(big["fm"], big["reads"], lens, starts, clock_hz,
+                         n_sms)
+    emit({"phase": "kernels", "kernel": "fm_smem",
+          "index": "random FMD text, beyond L2", "seq_len": big["fm"].seq_len,
+          "index_build_s": big["build_s"], **bigs})
+    bigw = _walk_case(big["fm"], big["ranks"], big["sa"], clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "fm_sa_walk",
+          "index": "random FMD text, beyond L2", "seq_len": big["fm"].seq_len,
+          "index_build_s": big["build_s"], **bigw})
+    del big
+    torch.cuda.empty_cache()
+    records["fm_sa_walk"] = {
+        "name": "fm_sa_walk", "route": "cuda",
+        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
+        "replaces": "speedseq_tpu/index/fm.py:306",
+        "launches": 0, "max_abs_err": bigw["max_abs_err"], "ms": bigw["ms"],
+        "plain_ms": bigw["plain_ms"], "bound_ms": bigw["bound_ms"],
+        "bound_by": bigw["bound_by"], "library_ms": None}
+    return records
+
+
+def _fm_inputs(work, fasta, genome, args):
+    """The align genome's FM index loaded with no SA cache (timed), the
+    same index without the full SA (the walk's), and the align cell's
+    fm_smem batch: 8,192 reads of 150 bp in a width of 151, 19 anchors."""
     import numpy as np
     import torch
 
     from speedseq_tpu_torch.align import pipeline
     from speedseq_tpu_torch.align.seeding import grid
     from speedseq_tpu_torch.index.fm import FMIndex
-    from speedseq_tpu_torch.ops import fm_search
     from speedseq_tpu_torch.utils import synth
 
     cache = pipeline._sa_cache_path(fasta)
@@ -208,22 +278,62 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     torch.cuda.synchronize()
     cold_load_s = time.perf_counter() - t0
     check(os.path.exists(cache), "the FM load wrote no SA cache")
-    sa_host = np.load(cache)
-    walk_fm = FMIndex.from_bwa_fm(idx, sa_host, "cuda", dense_sa_max=0)
+    walk_fm = FMIndex.from_bwa_fm(idx, np.load(cache), "cuda",
+                                  dense_sa_max=0)
     check(fm.sa_dense is not None and walk_fm.sa_dense is None,
           "dense / walk index split")
-    records = {}
-
     rd = synth.simulate(genome, FM_READS, read_len=150, seed=args.seed + 500,
                         kill_frac=0.01)
-    L = 151
-    reads = np.full((FM_READS, L), 4, np.uint8)
+    reads = np.full((FM_READS, 151), 4, np.uint8)
     reads[:, :150] = rd.seq1
-    lens = np.full(FM_READS, 150, np.int32)
+    return {"fm": fm, "walk_fm": walk_fm, "reads": reads,
+            "lens": np.full(FM_READS, 150, np.int32),
+            "starts": grid(151, 8, "cuda"), "cold_load_s": cold_load_s}
+
+
+def _walk_ranks(lanes, fm):
+    import torch
+
+    h = torch.arange(4, dtype=torch.int32, device="cuda")
+    return (lanes.k[:, None] + h).clamp(1, fm.seq_len).reshape(-1)
+
+
+def _big_fm_inputs(args, n_ranks):
+    """The index beyond the L2 (FM_BIG_HALF codes and their reverse
+    complement), 8,192 reads of 150 bp cut from the half-text at 0.2 %
+    substitutions (numpy, from the seed) and n_ranks uniform ranks."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    fm, sa, half = _random_fm_index(FM_BIG_HALF, args.seed + 600)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 602)
+    at = rng.integers(0, FM_BIG_HALF - 150, FM_READS)
+    cut = torch.from_numpy(at[:, None] + np.arange(150)).cuda()
+    body = half[cut].cpu().numpy()
+    err = rng.random(body.shape) < 0.002
+    body[err] = (body[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    reads = np.full((FM_READS, 151), 4, np.uint8)
+    reads[:, :150] = body
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 601)
+    ranks = torch.randint(1, fm.seq_len + 1, (n_ranks,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    return {"fm": fm, "sa": sa, "reads": reads, "ranks": ranks,
+            "build_s": build_s}
+
+
+def _smem_case(fm, reads, lens, starts, clock_hz, n_sms):
+    """fm_smem on one batch against its twin (bit-equal), timed, with its
+    bound from the steps the lanes took; returns (lanes, record)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import fm_search
+
+    B, L = reads.shape
     r_d, l_d = torch.from_numpy(reads).cuda(), torch.from_numpy(lens).cuda()
-    starts = grid(L, 8, "cuda")
     G = starts.shape[0]
-    n = FM_READS * G
+    n = B * G
     before = fm_search.LAUNCHES["fm_smem"]
     got = fm_search.fm_smem(fm, r_d, l_d, starts)
     torch.cuda.synchronize()
@@ -235,13 +345,47 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     ms = cuda_ms(lambda: fm_search.fm_smem(fm, r_d, l_d, starts), reps=20)
     plain_ms = cuda_ms(lambda: fm_search.fm_smem_plain(fm, r_d, l_d, starts),
                        reps=2, warmup=0)
-    # steps run: each lane's successful extensions, plus the failing try
-    # when it reached the index (a base inside the read, within the bound)
-    qb, qe = (t.cpu().numpy().reshape(FM_READS, G).astype(np.int64)
+    steps, two = _smem_steps(got, reads, lens, starts.cpu().numpy())
+    occ1, occ2 = fm_search.occ_ops(1), fm_search.occ_ops(2)
+    total = float(steps.sum())
+    one = total - two
+    int_ops = (total * fm_search.OPS_PER_STEP
+               + 2 * (one * occ1[0] + two * occ2[0]))
+    popc_ops = 2 * (one * occ1[1] + two * occ2[1])
+    # bytes: the reads, anchors and outputs, and of each index array no
+    # more than the steps can read (a step: two checkpoint rows of 4 and
+    # two blocks of 8 words)
+    need = lambda t, words: 4.0 * min(t.numel(), words)
+    index_bytes = (16 + need(fm.occ_ckpt, 8 * total)
+                   + need(fm.bwt, 16 * total))
+    nbytes = reads.size + 4.0 * (B + G) + index_bytes + 17.0 * n
+    bound = _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms)
+    alive = got.alive0.cpu().numpy()
+    return got, {
+        "reads": B, "anchors": G, "lanes": n, "alive_lanes": int(alive.sum()),
+        "bit_equal": True, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "steps_total": int(total),
+        "steps_two_class": int(two), "steps_longest_lane": int(steps.max()),
+        **bound, "chain_ms": int(steps.max()) * fm_search.CHAIN_OPS_PER_STEP
+        / clock_hz * 1e3}
+
+
+def _smem_steps(got, reads, lens, p):
+    """(extension steps each lane ran, steps whose base takes two
+    popcount classes): each lane's successful extensions, plus the
+    failing try when it reached the index (a base inside the read,
+    within the loop's bound)."""
+    import numpy as np
+
+    from speedseq_tpu_torch.ops import fm_search
+
+    B, L = reads.shape
+    G = p.shape[0]
+    qb, qe = (t.cpu().numpy().reshape(B, G).astype(np.int64)
               for t in (got.qbeg, got.qend))
-    alive = got.alive0.cpu().numpy().reshape(FM_READS, G)
-    p = starts.cpu().numpy()[None, :].astype(np.int64)
-    rows = np.arange(FM_READS)[:, None]
+    alive = got.alive0.cpu().numpy().reshape(B, G)
+    p = p[None, :].astype(np.int64)
+    rows = np.arange(B)[:, None]
 
     def base_at(q):
         inside = (q >= 0) & (q < lens[:, None])
@@ -261,66 +405,99 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     popcs = np.asarray(fm_search.POPCS_FOR_BASE + (0,))[reads][:, None, :]
     two = int((on & (popcs == 2)).sum())
     check(int(on.sum()) == int(steps.sum()), "fm_smem step census")
-    one = int(steps.sum()) - two
-    occ1, occ2 = fm_search.occ_ops(1), fm_search.occ_ops(2)
-    int_ops = (float(steps.sum()) * fm_search.OPS_PER_STEP
-               + 2 * (one * occ1[0] + two * occ2[0]))
-    popc_ops = 2 * (one * occ1[1] + two * occ2[1])
-    index_bytes = 4.0 * (fm.count.numel() + fm.occ_ckpt.numel()
-                         + fm.bwt.numel())
-    nbytes = reads.size + 4.0 * (FM_READS + G) + index_bytes + 17.0 * n
-    bound = _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms)
-    chain_ms = (int(steps.max()) * fm_search.CHAIN_OPS_PER_STEP / clock_hz
-                * 1e3)
-    records["fm_smem"] = {
-        "name": "fm_smem", "route": "cuda",
-        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
-        "replaces": "speedseq_tpu/align/seeding.py:109",
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-        "library_ms": None}
-    emit({"phase": "kernels", "kernel": "fm_smem", "reads": FM_READS,
-          "anchors": G, "lanes": n, "alive_lanes": int(alive.sum()),
-          "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
-          "steps_total": int(steps.sum()), "steps_two_class": two,
-          "steps_longest_lane": int(steps.max()), **bound,
-          "chain_ms": chain_ms, "index_load_cold_s": cold_load_s,
-          "seq_len": fm.seq_len})
+    return steps, two
 
-    # the walk: 4 ranks per lane from the lanes' intervals (every lane,
-    # not only the hits a seed keeps), on the index without the full SA;
-    # its 4.5 MB of occ and BWT stay in L2
-    h = torch.arange(4, dtype=torch.int32, device="cuda")
-    ranks = (got.k[:, None] + h).clamp(1, fm.seq_len).reshape(-1)
-    small = _walk_case(walk_fm, ranks, fm.sa_dense, clock_hz, n_sms)
-    emit({"phase": "kernels", "kernel": "fm_sa_walk",
-          "index": "align genome, L2-resident", "seq_len": fm.seq_len,
-          **small})
 
-    # the walk's own regime (indexes above 2^25 ranks): a random text's
-    # index of FM_BIG_RANKS ranks, occ and BWT 4x the L2, at as many
-    # uniform ranks
-    t0 = time.perf_counter()
-    big_fm, big_sa = _random_fm_index(FM_BIG_RANKS - 1, args.seed + 600)
-    build_s = time.perf_counter() - t0
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 601)
-    big_ranks = torch.randint(1, big_fm.seq_len + 1, (ranks.numel(),),
-                              generator=gen, device="cuda",
-                              dtype=torch.int32)
-    big = _walk_case(big_fm, big_ranks, big_sa, clock_hz, n_sms)
-    emit({"phase": "kernels", "kernel": "fm_sa_walk",
-          "index": "random text, beyond L2", "seq_len": big_fm.seq_len,
-          "index_build_s": build_s, **big})
-    del big_fm, big_sa
-    torch.cuda.empty_cache()
-    records["fm_sa_walk"] = {
-        "name": "fm_sa_walk", "route": "cuda",
-        "source": "speedseq_tpu_torch/ops/csrc/fm_search.cu",
-        "replaces": "speedseq_tpu/index/fm.py:306",
-        "launches": 0, "max_abs_err": big["max_abs_err"], "ms": big["ms"],
-        "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-        "bound_by": big["bound_by"], "library_ms": None}
-    return records
+def phase_fm_against(work, fasta, genome, args, paths):
+    """fm_smem and fm_sa_walk of this checkout's ``fm_search.cu`` against
+    other builds of that source (``--fm-smem-against``: the same C
+    interface, e.g. an earlier commit's file placed under build/), on this
+    card, at the fm kernels phase's inputs: both libraries' outputs equal
+    to the twins', then each case timed in turns (the given builds, this
+    one, this one again, the given builds in reverse), CUDA events over 20
+    launches after 2 of warm-up.  Calls the libraries directly (one
+    ctypes call each, the wrappers' own arguments), so no wrapper counts
+    these launches."""
+    import ctypes
+
+    import torch
+
+    from speedseq_tpu_torch.ops import fm_search
+    from speedseq_tpu_torch.ops.nvcc_build import build_library
+
+    libs = []
+    for path in list(paths) + [fm_search.SOURCE]:
+        info = {}
+        lib = ctypes.CDLL(build_library(os.path.abspath(path), info, True))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.ssq_fm_smem.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci,
+                                    ci, ci, vp, vp, vp, vp, vp, vp]
+        lib.ssq_fm_sa_walk.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp,
+                                       vp, vp, ci, vp, vp]
+        libs.append((os.path.relpath(os.path.abspath(path), ROOT), lib, [
+            l.strip() for l in info.get("ptxas", "").splitlines()
+            if "registers" in l or "spill" in l]))
+    fm_in = _fm_inputs(work, fasta, genome, args)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def smem(fm, reads):
+        r8 = torch.from_numpy(reads).cuda()
+        ln = torch.from_numpy(fm_in["lens"]).cuda()
+        st = fm_in["starts"]
+        want = fm_search.fm_smem_plain(fm, r8, ln, st)
+        out = [torch.empty_like(t) for t in want]
+
+        def run(lib):
+            rc = lib.ssq_fm_smem(
+                r8.data_ptr(), ln.data_ptr(), *r8.shape, st.data_ptr(),
+                st.numel(), *fm_search._index_args(fm),
+                *(t.data_ptr() for t in out), stream())
+            check(rc == 0, f"fm_smem launch failed ({rc})")
+            return out
+        return run, want
+
+    def walk(fm, ranks):
+        want = fm_search.fm_sa_walk_plain(fm, ranks)
+        out = torch.empty_like(want)
+
+        def run(lib):
+            rc = lib.ssq_fm_sa_walk(
+                ranks.data_ptr(), ranks.numel(), *fm_search._index_args(fm),
+                fm.sa_mark.data_ptr(), fm.sa_ckpt.data_ptr(),
+                fm.sa_vals.data_ptr(), fm.sa_vals.shape[0], out.data_ptr(),
+                stream())
+            check(rc == 0, f"fm_sa_walk launch failed ({rc})")
+            return [out]
+        return run, [want]
+
+    fm = fm_in["fm"]
+    lanes = fm_search.fm_smem(fm, torch.from_numpy(fm_in["reads"]).cuda(),
+                              torch.from_numpy(fm_in["lens"]).cuda(),
+                              fm_in["starts"])
+    ranks = _walk_ranks(lanes, fm)
+    cases = [("fm_smem", "align genome, L2-resident",
+              smem(fm, fm_in["reads"])),
+             ("fm_sa_walk", "align genome, L2-resident",
+              walk(fm_in["walk_fm"], ranks))]
+    big = _big_fm_inputs(args, ranks.numel())
+    cases += [("fm_smem", "random FMD text, beyond L2",
+               smem(big["fm"], big["reads"])),
+              ("fm_sa_walk", "random FMD text, beyond L2",
+               walk(big["fm"], big["ranks"]))]
+    order = list(range(len(libs))) + list(range(len(libs)))[::-1]
+    for kernel, index, (run, want) in cases:
+        for name, lib, _ in libs:
+            got = run(lib)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{kernel} of {name} disagrees with its twin ({index})")
+        times = [[] for _ in libs]
+        for j in order:
+            times[j].append(cuda_ms(lambda: run(libs[j][1]), reps=20))
+        emit({"phase": "fm_against", "kernel": kernel, "index": index,
+              "order": [libs[j][0] for j in order], "bit_equal": True,
+              "ms": {name: t for (name, _, _), t in zip(libs, times)}})
+    emit({"phase": "fm_against", "ptxas": {n: p for n, _, p in libs}})
 
 
 def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
@@ -378,12 +555,13 @@ def _walk_case(walk_fm, ranks, sa_full, clock_hz, n_sms):
             / clock_hz * 1e3}
 
 
-def _random_fm_index(n: int, seed: int, device: str = "cuda"):
-    """(FMIndex on the card without the full SA, full SA on the card) of
-    a random text of n codes: the suffix array by prefix doubling on the
-    card (argsort of 27-code keys, then of rank pairs), the BWT, occ
-    checkpoints and C from it, and the SA samples by the port's own
-    constructor (FMIndex.from_bwa_fm)."""
+def _random_fm_index(n_half: int, seed: int, device: str = "cuda"):
+    """(FMIndex on the card without the full SA, full SA on the card, the
+    half-text) of bwa's FMD layout over a random half-text of n_half
+    codes: the text is the half-text and its reverse complement; the
+    suffix array by prefix doubling on the card (argsort of 27-code keys,
+    then of rank pairs), the BWT, occ checkpoints and C from it, and the
+    SA samples by the port's own constructor (FMIndex.from_bwa_fm)."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -394,8 +572,10 @@ def _random_fm_index(n: int, seed: int, device: str = "cuda"):
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    text = torch.randint(0, 4, (n,), generator=gen, device=dev,
+    half = torch.randint(0, 4, (n_half,), generator=gen, device=dev,
                          dtype=torch.uint8)
+    text = torch.cat([half, 3 - half.flip(0)])
+    n = text.numel()
     K = 27                               # 5^27 < 2^63: codes + 1, 0 past the end
     padded = torch.cat([text.long() + 1,
                         torch.zeros(K, dtype=torch.long, device=dev)])
@@ -436,12 +616,12 @@ def _random_fm_index(n: int, seed: int, device: str = "cuda"):
     words = ((padded & 3).reshape(-1, 16) << sh).sum(1)  # disjoint fields
     L2 = np.zeros(5, dtype=np.int64)
     L2[1:] = np.cumsum(torch.bincount(text.long(), minlength=4).cpu().numpy())
-    idx = SimpleNamespace(pac=text.cpu().numpy(), L2=L2, primary=primary,
+    idx = SimpleNamespace(pac=half.cpu().numpy(), L2=L2, primary=primary,
                           bwt_words=words.cpu().numpy().astype(np.uint32),
                           occ=occ.cpu().numpy())
     del padded, per_block, occ, words, stored
     fm = FMIndex.from_bwa_fm(idx, sa.cpu().numpy(), dev, dense_sa_max=0)
-    return fm, sa.to(torch.int32)
+    return fm, sa.to(torch.int32), half
 
 
 def read_records(path):
@@ -1259,6 +1439,9 @@ def phase_sv_combine(args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fm-smem-against", nargs="+", metavar="CU",
+                    help="only time fm_search.cu against these builds of "
+                    "it, in turns (phase fm_against)")
     args = ap.parse_args()
 
     import torch
@@ -1295,11 +1478,24 @@ def main() -> int:
                         if "registers" in l or "spill" in l
                         or "Compiling" in l]} for m in mods}})
 
-    records = phase_kernels(args, clock_mhz * 1e6, props.multi_processor_count)
-
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    if args.fm_smem_against:
+        try:
+            genome = synth.make_genome(GENOME, seed=args.seed, n_del=64)
+            fasta = os.path.join(work, "genome.fa")
+            synth.write_fasta(fasta, genome)
+            phase_fm_against(work, fasta, genome, args, args.fm_smem_against)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    records = phase_kernels(args, clock_mhz * 1e6, props.multi_processor_count)
     try:
         genome = synth.make_genome(GENOME, seed=args.seed, n_del=64)
         fasta = os.path.join(work, "genome.fa")

@@ -4,7 +4,12 @@ Two kernels, hand-written for Hopper in ``csrc/fm_search.cu``:
 
 - ``fm_smem``: per (read, anchor) lane, the forward then the backward
   extension loop of ``speedseq_tpu/align/seeding.py:find_seeds`` (its two
-  ``lax.while_loop``s), one launch per call with no host sync;
+  ``lax.while_loop``s) in one loop of the lane's thread, one launch per
+  call with no host sync.  A step reads one checkpoint row and one
+  16-byte half-block when both ranks of the interval fall in that half,
+  counting up from the block's checkpoint or down from the next one's,
+  else two lookups with all their loads in flight together; it counts only
+  the base's class and the classes above it (the source's head note);
 - ``fm_sa_walk``: per rank, the LF walk of ``speedseq_tpu/index/fm.py:
   sa_lookup`` (its 32-step ``fori_loop``) for indexes without a full SA.
 

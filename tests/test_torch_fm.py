@@ -37,7 +37,7 @@ from speedseq_tpu_torch.index import fm as tfm
 from speedseq_tpu_torch.index.bwt import build_index, load_index
 from speedseq_tpu_torch.index.suffix import suffix_array
 from speedseq_tpu_torch.ops import fm_search
-from speedseq_tpu_torch.utils import synth
+from speedseq_tpu_torch.utils import fm_cases, synth
 
 torch.set_num_threads(1)
 
@@ -51,9 +51,7 @@ FM_FIELDS = ("count", "occ_ckpt", "bwt", "sa_mark", "sa_ckpt", "sa_vals",
              "sa_dense")
 
 
-def _fmd_text(pac):
-    """The text the index is built over: forward + reverse complement."""
-    return np.concatenate([pac, 3 - pac[::-1]]).astype(np.uint8)
+_fmd_text = fm_cases.fmd_text
 
 
 def _np(x):
@@ -222,6 +220,207 @@ def test_fm_smem_twin_lanes(index, batch):
         assert np.array_equal(text[pos:pos + qe - qb], reads[b, qb:qe])
         checked += 1
     assert checked > 100
+
+
+# ------------------------------------------------ fm_smem's edge cases
+
+EDGE_READS = 20
+
+
+@pytest.fixture(scope="module")
+def edge(tmp_path_factory):
+    """Both packages' FMD indexes of ``utils/fm_cases.py``'s two genomes."""
+    d = tmp_path_factory.mktemp("tfmedge")
+    out = {}
+    for name, g in fm_cases.edge_genomes(seed=31).items():
+        fa = str(d / f"{name}.fa")
+        synth.write_fasta(fa, g)
+        build_index(fa)
+        out[name] = (g, jfm.FMIndex.from_bwa(jbwt.load_index(fa)),
+                     tfm.FMIndex.from_bwa_fm(load_index(fa)))
+    return out
+
+
+class _StepLog:
+    """Every extension step the twin's lanes take (lanes alive, at an ACGT
+    base): the rank x the step extends, its mirror y, the size s and the
+    base class, as ``fm_smem``'s kernel sees them (a forward step extends
+    the mirror interval (l, k) by the complement)."""
+
+    def __init__(self):
+        self.steps, self.phase, self.alive0, self.alive = [], None, None, None
+
+    def wrap(self, fn, phase):
+        def step(fm, iv, c):
+            ext = fn(fm, iv, c)
+            if self.phase != phase:       # a phase's first step
+                if phase == "fwd":
+                    self.alive0 = iv.s > 0
+                self.alive, self.phase = self.alive0.clone(), phase
+            live = self.alive & (c < 4)
+            x, y, cc = ((iv.l, iv.k, 3 - c) if phase == "fwd"
+                        else (iv.k, iv.l, c))
+            self.steps.append([t[live].to(torch.int64).numpy()
+                               for t in (x, y, iv.s, cc)])
+            self.alive = live & (ext.s > 0)
+            return ext
+        return step
+
+
+_M32 = 0xFFFFFFFF
+_LOW = 0x55555555
+
+
+def _top_bases(v):
+    t = np.clip(2 * v, 0, 32)
+    return np.where(t == 0, 0, (_M32 << (32 - t)) & _M32)
+
+
+def _class_bits(x, c):
+    """(base == c, base above c) bits of words x, as the kernel's is_c and
+    above_c (c = 1 the high bit, c = 2 high & low, c = 0 and 3 none)."""
+    t = ~(x ^ (_LOW * c)) & _M32
+    gor = np.where(c == 1, _M32, 0)
+    gmask = np.where((c == 1) | (c == 2), _LOW, 0)
+    return t & (t >> 1) & _LOW, (x >> 1) & (x | gor) & gmask
+
+
+def _popc_pairs(bits):
+    """Set bits of (..., n) low-bit masks, two words to a popcount."""
+    pair = bits[..., 0::2] | ((bits[..., 1::2] << 1) & _M32)
+    return np.bitwise_count(pair.astype(np.uint64)).astype(np.int64).sum(-1)
+
+
+def _kernel_step_model(T, x, s, c):
+    """``fm_search.cu:extend`` in numpy, bit for bit: (new size, c's occ
+    below x, bases above c in the interval), the path each step takes (one
+    half-block counted up or down, or a lookup at each end) and the rows."""
+    occ = T.occ_ckpt.numpy().astype(np.int64)
+    halves = T.bwt.numpy().view(np.uint32).astype(np.int64).reshape(-1, 2, 4)
+    nb = halves.shape[0]
+    stored = lambda k: np.clip(k - (k > T.primary), 0, T.seq_len)
+    pick = lambda ck: np.take_along_axis(ck, c[:, None], 1)[:, 0]
+    above_ck = lambda ck: np.where(c == 1, ck[:, 2] + ck[:, 3],
+                                   np.where(c == 2, ck[:, 3], 0))
+    i4 = np.arange(4)
+
+    def load_half(r, reach):
+        blk, w = r >> 7, r & 127
+        down = (w >= 64) & (blk < (T.seq_len >> 7))
+        upper = down | (w > 64)
+        rows = halves[np.minimum(blk, nb - 1)]
+        v = np.where((upper | (reach > 0))[:, None],
+                     rows[np.arange(len(r)), upper.astype(np.int64)], 0)
+        lo = np.where((upper & ~down)[:, None], rows[:, 0], 0)
+        return dict(ck=occ[blk + down], v=v, lo=lo, a=w - 64 * upper,
+                    down=down, upper=upper)
+
+    def count_half(h, z):
+        ma = _top_bases(h["a"][:, None] - 16 * i4)
+        side = np.where(h["down"][:, None], ~ma & _M32, ma)
+        rng = _top_bases(z[:, None] - 16 * i4) & ~ma & _M32
+        eq, gt = _class_bits(h["v"], c[:, None])
+        leq, lgt = _class_bits(h["lo"], c[:, None])
+        extra = (h["upper"] & ~h["down"]).astype(np.int64)
+        cs = _popc_pairs(eq & side) + extra * _popc_pairs(leq)
+        gs = _popc_pairs(gt & side) + extra * _popc_pairs(lgt)
+        sign = np.where(h["down"], -1, 1)
+        return (pick(h["ck"]) + sign * cs, above_ck(h["ck"]) + sign * gs,
+                _popc_pairs(eq & rng), _popc_pairs(gt & rng))
+
+    r1, r2 = stored(x), stored(x + s)
+    e = r2 - ((r1 >> 7) << 7)
+    p = load_half(r1, e)
+    one = e <= np.where(p["upper"], 128, 64)
+    occ1, og1, n, up = count_half(p, np.where(one, e - 64 * p["upper"],
+                                              p["a"]))
+    q = load_half(r2, r2 & 127)
+    occ2, og2, _, _ = count_half(q, q["a"])
+    n = np.where(one, n, occ2 - occ1)
+    up = np.where(one, up, og2 - og1)
+    up = np.where(c == 0, r2 - r1 - n, up)
+    path = np.where(one, np.where(p["down"], "down", np.where(
+        p["upper"], "partial", "up")), "two")
+    return n, occ1, up, path, dict(r1=r1, r2=r2, blk=r1 >> 7, w1=r1 & 127,
+                                   e=e, nb=nb)
+
+
+def _count_step(T, x, y, s, c):
+    """The twin's extension of (x, y, s) by c: (new size, c's occ below x,
+    bases above c in the interval), from ``backward_ext_all``."""
+    t = lambda a: torch.from_numpy(a)
+    ext = tfm.backward_ext_all(T, tfm.BiInterval(t(x), t(y), t(s)))
+    pick = lambda a: np.take_along_axis(a.numpy().astype(np.int64),
+                                        c[:, None], 1)[:, 0]
+    sent = ((T.primary >= x) & (T.primary < x + s)).astype(np.int64)
+    return (pick(ext.s), pick(ext.k) - T.count.numpy()[c],
+            pick(ext.l) - y - sent)
+
+
+@pytest.mark.parametrize("L", fm_cases.WIDTHS)
+@pytest.mark.parametrize("genome", ["random", "tandem"])
+def test_fm_smem_edge_cases(edge, genome, L, monkeypatch):
+    """``find_seeds`` at every anchor (stride 1) on ``utils/fm_cases.py``'s
+    reads, the twin's against the JAX package's, every SMEM kept (min
+    length 1, no occurrence cap); then every extension step the twin's
+    lanes took, counted by a numpy model of the kernel's step (one
+    half-block up or down, or two lookups; the class bits and paired
+    popcounts) equal to the twin's count, and the steps reach each of the
+    kernel's branches: the lower half, the upper half, the partial last
+    block's upper half (counted up) and two lookups, two lookups inside one
+    block, intervals holding the sentinel row in one block and across
+    blocks, within 0 / 16 / 64 / 127, the last block and its last row."""
+    g, J, T = edge[genome]
+    reads, lens = fm_cases.edge_reads(g, L, EDGE_READS, seed=L)
+    kw = dict(stride=1, min_seed_len=1, max_occ=1 << 30)
+    want = jseed.find_seeds(J, jnp.asarray(reads), jnp.asarray(lens), **kw)
+    log = _StepLog()
+    monkeypatch.setattr(fm_search, "forward_ext",
+                        log.wrap(fm_search.forward_ext, "fwd"))
+    monkeypatch.setattr(fm_search, "backward_ext",
+                        log.wrap(fm_search.backward_ext, "bwd"))
+    got = tseed.find_seeds(T, torch.from_numpy(reads), torch.from_numpy(lens),
+                           **kw)
+    assert all(_eq(a, b) for a, b in zip(want, got))
+    assert int(got.valid.sum()) > 0
+
+    x, y, s, c = (np.concatenate(a) for a in zip(*log.steps))
+    n, occ, up, path, at = _kernel_step_model(T, x, s, c)
+    wn, wocc, wup = _count_step(T, x, y, s, c)
+    assert np.array_equal(n, wn)
+    ok = n > 0                     # the kernel keeps k and l otherwise
+    assert np.array_equal(occ[ok], wocc[ok])
+    assert np.array_equal(up[ok], wup[ok])
+
+    same = (at["r1"] >> 7) == (at["r2"] >> 7)
+    sent = (T.primary >= x) & (T.primary < x + s)
+    reached = {
+        "lower half": path == "up", "upper half": path == "down",
+        "partial last block, upper half": path == "partial",
+        "two blocks": (path == "two") & ~same,
+        "two lookups in one block": (path == "two") & same,
+        "sentinel, one block": sent & same, "sentinel, two blocks":
+        sent & ~same, "last block": at["blk"] == at["nb"] - 1,
+        "last row": at["r2"] == T.seq_len,
+        "to the block's end": at["e"] == 128,
+        **{f"within {w}": at["w1"] == w for w in (0, 16, 64, 127)}}
+    assert not [k for k, m in reached.items() if not m.any()]
+
+
+@pytest.mark.parametrize("genome", ["random", "tandem"])
+def test_occ_checkpoints_count_their_blocks(edge, genome):
+    """The identity the kernel's downward count rests on: checkpoint b+1
+    is checkpoint b plus block b's counts, for every full block (the
+    partial last block is only counted up)."""
+    _, _, T = edge[genome]
+    words = T.bwt.numpy().view(np.uint32)
+    codes = (words[..., None] >> (30 - 2 * np.arange(16, dtype=np.uint32))
+             ) & 3
+    codes = codes.reshape(len(words), 128)[: T.seq_len >> 7]
+    counts = np.stack([(codes == b).sum(1) for b in range(4)], 1)
+    occ = T.occ_ckpt.numpy()
+    assert np.array_equal(occ[1:len(counts) + 1] - occ[:len(counts)], counts)
+    assert T.seq_len % 128 > 64 and occ[-1].sum() == T.seq_len
 
 
 def _planted_seeds(rng, B=64, S=24):

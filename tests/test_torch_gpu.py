@@ -351,6 +351,48 @@ def test_fm_smem_kernel_matches_twin(fm_case, stride):
     assert int(got.alive0.sum()) > 0
 
 
+@pytest.fixture(scope="module")
+def fm_edge(tmp_path_factory):
+    """``utils/fm_cases.py``'s two genomes' FMD indexes, on the card."""
+    _need_card()
+    from speedseq_tpu_torch.index.bwt import build_index
+    from speedseq_tpu_torch.index.fm import FMIndex
+    from speedseq_tpu_torch.utils import fm_cases, synth
+
+    d = tmp_path_factory.mktemp("gfmedge")
+    out = {}
+    for name, g in fm_cases.edge_genomes(seed=31).items():
+        fa = str(d / f"{name}.fa")
+        synth.write_fasta(fa, g)
+        out[name] = (g, FMIndex.from_bwa_fm(build_index(fa), device="cuda"))
+    return out
+
+
+@pytest.mark.parametrize("L", [101, 151, 251])
+@pytest.mark.parametrize("genome", ["random", "tandem"])
+def test_fm_smem_edge_cases_kernel_matches_twin(fm_edge, genome, L):
+    """The kernel bit-equal to its twin at every anchor of the edge-case
+    reads (the inputs of tests/test_torch_fm.py::test_fm_smem_edge_cases,
+    which reach each branch of the kernel's extension step)."""
+    _need_card()
+    from speedseq_tpu_torch.align.seeding import grid
+    from speedseq_tpu_torch.ops import fm_search
+    from speedseq_tpu_torch.utils import fm_cases
+
+    g, fm = fm_edge[genome]
+    reads, lens = fm_cases.edge_reads(g, L, 20, seed=L)
+    r, l = torch.from_numpy(reads).cuda(), torch.from_numpy(lens).cuda()
+    starts = grid(L, 1, "cuda")
+    before = fm_search.LAUNCHES["fm_smem"]
+    got = fm_search.fm_smem(fm, r, l, starts)
+    torch.cuda.synchronize()
+    assert fm_search.LAUNCHES["fm_smem"] == before + 1
+    want = fm_search.fm_smem_plain(fm, r, l, starts)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(got.alive0.sum()) > 0
+
+
 def test_fm_sa_walk_kernel_matches_twin_and_dense(fm_case):
     """Every rank of the index (the sentinel row included) through the
     walk kernel against its twin and the full SA."""
