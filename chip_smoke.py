@@ -1,13 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --fm-smem-against OTHER.cu [OTHER.cu ...]
+    python3 chip_smoke.py --against DIR [DIR ...]
 
-The second form runs only the device and build phases and fm_against:
-fm_smem and fm_sa_walk of this checkout's fm_search.cu against the given
-builds of that source, bit-equal to the twins and timed in turns at the
-fm kernels phase's inputs (both index sizes), then the nvidia-smi line and
-the last line.
+The second form runs only the device and build phases and against: the
+fm_search.cu and sv_cluster.cu of earlier versions (each DIR holds
+either or both, with a389f54's C interface or this checkout's; e.g.
+`git show a389f54:speedseq_tpu_torch/ops/csrc/fm_search.cu >
+build/earlier/fm_search.cu`) built beside this checkout's, every kernel's
+output equal to its twin's, and each kernel timed in turns against this
+checkout's: fm_smem on both FM indexes; fm_sa_walk on the 12 M-rank index
+and on the 2^28 + 1-rank index at uniform ranks and at the ranks
+find_seeds passes; the sweep at the sv phase's evidence and at the genome
+and genome-piles shapes (with the device time alone and per kernel of
+the versions without host syncs).  Then the nvidia-smi line and the last
+line.
 
 Phases, each printing one JSON line:
 
@@ -26,7 +33,9 @@ Phases, each printing one JSON line:
            both again beyond the L2, on the FMD index of a random 2^27-code
            half-text and its reverse complement (2^28 + 1 ranks, SA by
            prefix doubling on the card), fm_smem on 8,192 reads of 150 bp
-           cut from the half-text at 0.2 % substitutions
+           cut from the half-text at 0.2 % substitutions, and the walk at
+           the ranks find_seeds passes it there (4 hits a lane, dead hits
+           at rank 1)
   parity   (fm) the same 2,048 pairs with seed_mode="fm" on cpu and on
            cuda, record-equal, and once more on cuda with an index
            without the full SA (the SA-walk path), record-equal too
@@ -71,8 +80,9 @@ Phases, each printing one JSON line:
            counters, recall/precision against the planted events (>= 0.9
            each), genotypes and CN of the matched calls, and cpu/cuda
            parity of the records and readdepth calls over the same BAMs
-  kernels  then the sv_cluster sweep kernel against its twin (bit-equal) at
-           the sv phase's evidence and at 1,048,576 rows in 16 groups
+  kernels  then the sv_cluster sweep kernels against their twin (bit-equal)
+           at the sv phase's evidence, at 1,048,576 rows in 16 groups and
+           at 1,048,576 rows in 256 skewed groups with piles (genome-piles)
   combine  the cluster sweep + curve combination (``cluster_and_combine``)
            at one pile of SV_PILE members on cuda, timed, against cpu: its
            member-rank loop runs one step per member
@@ -127,7 +137,11 @@ def nvidia_smi(fields: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """CUDA events around reps calls of fn after warmup, per call.  With
+    queued, a ~20 ms spin kernel runs first, so that the host enqueues
+    every call before the first starts: the device's time alone, not the
+    host's (only for calls that make no host sync)."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +149,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(40_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -235,8 +251,8 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     # the L2; fm_smem on reads cut from the half-text, the walk at as
     # many uniform ranks as above
     big = _big_fm_inputs(args, ranks.numel())
-    _, bigs = _smem_case(big["fm"], big["reads"], lens, starts, clock_hz,
-                         n_sms)
+    big_lanes, bigs = _smem_case(big["fm"], big["reads"], lens, starts,
+                                 clock_hz, n_sms)
     emit({"phase": "kernels", "kernel": "fm_smem",
           "index": "random FMD text, beyond L2", "seq_len": big["fm"].seq_len,
           "index_build_s": big["build_s"], **bigs})
@@ -244,6 +260,15 @@ def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
     emit({"phase": "kernels", "kernel": "fm_sa_walk",
           "index": "random FMD text, beyond L2", "seq_len": big["fm"].seq_len,
           "index_build_s": big["build_s"], **bigw})
+    # the ranks find_seeds passes the walk on that index (the main path
+    # of a genome above 2^25 ranks): 4 hits a lane, dead hits at rank 1
+    path_ranks = _seed_ranks(big_lanes, starts)
+    bigp = _walk_case(big["fm"], path_ranks, big["sa"], clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "fm_sa_walk",
+          "index": "random FMD text, beyond L2",
+          "ranks_from": "find_seeds (dead hits at rank 1)",
+          "dead_hits": int((path_ranks == 1).sum()),
+          "seq_len": big["fm"].seq_len, **bigp})
     del big
     torch.cuda.empty_cache()
     records["fm_sa_walk"] = {
@@ -296,6 +321,15 @@ def _walk_ranks(lanes, fm):
 
     h = torch.arange(4, dtype=torch.int32, device="cuda")
     return (lanes.k[:, None] + h).clamp(1, fm.seq_len).reshape(-1)
+
+
+def _seed_ranks(lanes, starts):
+    """The ranks find_seeds hands the walk from these lanes (its own
+    helper, defaults of bwa mem -k / -c), flattened."""
+    from speedseq_tpu_torch.align.seeding import hit_ranks
+
+    G = starts.shape[0]
+    return hit_ranks(lanes, lanes.k.shape[0] // G, G)[0].reshape(-1)
 
 
 def _big_fm_inputs(args, n_ranks):
@@ -408,96 +442,245 @@ def _smem_steps(got, reads, lens, p):
     return steps, two
 
 
-def phase_fm_against(work, fasta, genome, args, paths):
-    """fm_smem and fm_sa_walk of this checkout's ``fm_search.cu`` against
-    other builds of that source (``--fm-smem-against``: the same C
-    interface, e.g. an earlier commit's file placed under build/), on this
-    card, at the fm kernels phase's inputs: both libraries' outputs equal
-    to the twins', then each case timed in turns (the given builds, this
-    one, this one again, the given builds in reverse), CUDA events over 20
-    launches after 2 of warm-up.  Calls the libraries directly (one
-    ctypes call each, the wrappers' own arguments), so no wrapper counts
-    these launches."""
+def _c_signature(path, fn):
+    """The parameter list of ``fn``'s extern "C" declaration in a source,
+    whitespace-normalised."""
+    import re
+
+    with open(path) as f:
+        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", f.read())
+    return " ".join(m.group(1).split()) if m else None
+
+
+def _earlier_libs(dirs):
+    """{stem: [(name, lib, this_interface, ptxas lines)]}: the ctypes
+    libraries of the fm_search.cu and sv_cluster.cu each directory holds,
+    named by the directory, each built with the C interface its source
+    declares: this checkout's (its argument types are copied) or
+    a389f54's (the walk on occ, BWT and mark arrays, the sweep on gid
+    segment starts)."""
     import ctypes
 
-    import torch
-
-    from speedseq_tpu_torch.ops import fm_search
+    from speedseq_tpu_torch.ops import fm_search, sv_cluster
     from speedseq_tpu_torch.ops.nvcc_build import build_library
 
-    libs = []
-    for path in list(paths) + [fm_search.SOURCE]:
-        info = {}
-        lib = ctypes.CDLL(build_library(os.path.abspath(path), info, True))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ssq_fm_smem.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci,
-                                    ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.ssq_fm_sa_walk.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci, vp,
-                                       vp, vp, ci, vp, vp]
-        libs.append((os.path.relpath(os.path.abspath(path), ROOT), lib, [
-            l.strip() for l in info.get("ptxas", "").splitlines()
-            if "registers" in l or "spill" in l]))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    a389f54 = {"ssq_fm_smem": [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci, ci,
+                               ci, vp, vp, vp, vp, vp, vp],
+               "ssq_fm_sa_walk": [vp, ci, vp, vp, vp, ci, ci, ci, vp, vp,
+                                  vp, ci, vp, vp],
+               "ssq_sv_cluster": [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]}
+    FNS = {"fm_search": ("ssq_fm_smem", "ssq_fm_sa_walk"),
+           "sv_cluster": ("ssq_sv_cluster",)}
+    out = {"fm_search": [], "sv_cluster": []}
+    for d in dirs:
+        for stem, mod in (("fm_search", fm_search), ("sv_cluster",
+                                                      sv_cluster)):
+            path = os.path.abspath(os.path.join(d, stem + ".cu"))
+            if not os.path.exists(path):
+                continue
+            here = os.path.join(os.path.dirname(mod.__file__), "csrc",
+                                stem + ".cu")
+            fns = FNS[stem]
+            this = all(_c_signature(path, f) == _c_signature(here, f)
+                       for f in fns)
+            info = {}
+            lib = ctypes.CDLL(build_library(path, info, True))
+            for f in fns:
+                getattr(lib, f).argtypes = (
+                    getattr(mod._load(), f).argtypes if this else a389f54[f])
+            out[stem].append((os.path.basename(os.path.normpath(d)), lib,
+                              this, [l.strip() for l in info.get(
+                                  "ptxas", "").splitlines()
+                                  if "registers" in l or "spill" in l]))
+    return out
+
+
+def _in_turns(kernel, case, runs, want, queued=()):
+    """Each run's output equal to ``want``, then the runs timed in turns
+    (the list, then the list reversed; CUDA events over 20 launches after
+    2 of warm-up), and the runs named in ``queued`` again with the queue
+    filled first (their device time); emits and returns {name: [ms,
+    ms]}."""
+    import torch
+
+    for name, run in runs:
+        got = run()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{kernel} of {name} disagrees with its twin ({case})")
+    times = {name: [] for name, _ in runs}
+    device = {name: [] for name, _ in runs if name in queued}
+    for name, run in runs + runs[::-1]:
+        times[name].append(cuda_ms(run, reps=20))
+        if name in device:
+            device[name].append(cuda_ms(run, reps=20, queued=True))
+    emit({"phase": "against", "kernel": kernel, "case": case,
+          "order": [n for n, _ in runs + runs[::-1]], "bit_equal": True,
+          "ms": times, **({"device_ms": device} if device else {})})
+    return times
+
+
+def _kernel_split(fn, reps=5):
+    """Device microseconds per call of each kernel fn launches, from
+    torch.profiler (an empty dict where the profiler sees no device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    import re
+
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        name = re.search(r"sweep_\w+", ev.key)
+        if us and name:
+            out[name.group(0)] = out.get(name.group(0), 0.0) + us / reps
+    return out
+
+
+def phase_against(work, fasta, genome, args, dirs):
+    """This checkout's fm_smem, fm_sa_walk and sv_cluster against earlier
+    versions' (``--against DIR ...``: the fm_search.cu and sv_cluster.cu
+    each directory holds, built with the C interface each declares), in
+    turns on this card: fm_smem on both FM indexes; fm_sa_walk on the
+    12 M-rank index, on the 2^28 + 1-rank index at uniform ranks and at
+    the ranks find_seeds passes; the sweep at the sv phase's evidence and
+    at the genome and genome-piles shapes, each as its wrapper runs it
+    (a389f54's with its host syncs), with the device time and a
+    per-kernel split of those on this checkout's interface.  Every output
+    equal to the twin's.  The kernels are called through their libraries
+    directly, so no wrapper counts those launches."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.ops import fm_search, sv_cluster
+    from speedseq_tpu_torch.utils import sv_cases
+
+    earlier = _earlier_libs(dirs)
+    fm_libs = earlier["fm_search"] + [("this", fm_search._load(), True, [])]
+    sv_libs = earlier["sv_cluster"] + [("this", sv_cluster._load(), True,
+                                        [])]
     fm_in = _fm_inputs(work, fasta, genome, args)
     stream = lambda: torch.cuda.current_stream().cuda_stream
+    lens_d = torch.from_numpy(fm_in["lens"]).cuda()
+    st = fm_in["starts"]
 
     def smem(fm, reads):
         r8 = torch.from_numpy(reads).cuda()
-        ln = torch.from_numpy(fm_in["lens"]).cuda()
-        st = fm_in["starts"]
-        want = fm_search.fm_smem_plain(fm, r8, ln, st)
-        out = [torch.empty_like(t) for t in want]
+        want = fm_search.fm_smem_plain(fm, r8, lens_d, st)
 
         def run(lib):
+            out = [torch.empty_like(t) for t in want]
             rc = lib.ssq_fm_smem(
-                r8.data_ptr(), ln.data_ptr(), *r8.shape, st.data_ptr(),
+                r8.data_ptr(), lens_d.data_ptr(), *r8.shape, st.data_ptr(),
                 st.numel(), *fm_search._index_args(fm),
                 *(t.data_ptr() for t in out), stream())
             check(rc == 0, f"fm_smem launch failed ({rc})")
             return out
-        return run, want
+        return want, [(name, lambda l=lib: run(l))
+                      for name, lib, _, _ in fm_libs]
 
     def walk(fm, ranks):
-        want = fm_search.fm_sa_walk_plain(fm, ranks)
-        out = torch.empty_like(want)
+        want = [fm_search.fm_sa_walk_plain(fm, ranks)]
+        out = torch.empty_like(want[0])
 
-        def run(lib):
-            rc = lib.ssq_fm_sa_walk(
-                ranks.data_ptr(), ranks.numel(), *fm_search._index_args(fm),
-                fm.sa_mark.data_ptr(), fm.sa_ckpt.data_ptr(),
-                fm.sa_vals.data_ptr(), fm.sa_vals.shape[0], out.data_ptr(),
-                stream())
+        def run(lib, this):
+            index = (fm_search.walk_args(fm) if this else
+                     fm_search._index_args(fm) + (
+                         fm.sa_mark.data_ptr(), fm.sa_ckpt.data_ptr(),
+                         fm.sa_vals.data_ptr(), fm.sa_vals.shape[0]))
+            rc = lib.ssq_fm_sa_walk(ranks.data_ptr(), ranks.numel(), *index,
+                                    out.data_ptr(), stream())
             check(rc == 0, f"fm_sa_walk launch failed ({rc})")
             return [out]
-        return run, [want]
+        return want, [(name, lambda l=lib, t=this: run(l, t))
+                      for name, lib, this, _ in fm_libs]
 
-    fm = fm_in["fm"]
-    lanes = fm_search.fm_smem(fm, torch.from_numpy(fm_in["reads"]).cuda(),
-                              torch.from_numpy(fm_in["lens"]).cuda(),
-                              fm_in["starts"])
+    fm, walk_fm = fm_in["fm"], fm_in["walk_fm"]
+    reads = fm_in["reads"]
+    lanes = fm_search.fm_smem(fm, torch.from_numpy(reads).cuda(), lens_d, st)
     ranks = _walk_ranks(lanes, fm)
-    cases = [("fm_smem", "align genome, L2-resident",
-              smem(fm, fm_in["reads"])),
-             ("fm_sa_walk", "align genome, L2-resident",
-              walk(fm_in["walk_fm"], ranks))]
     big = _big_fm_inputs(args, ranks.numel())
-    cases += [("fm_smem", "random FMD text, beyond L2",
-               smem(big["fm"], big["reads"])),
-              ("fm_sa_walk", "random FMD text, beyond L2",
-               walk(big["fm"], big["ranks"]))]
-    order = list(range(len(libs))) + list(range(len(libs)))[::-1]
-    for kernel, index, (run, want) in cases:
-        for name, lib, _ in libs:
-            got = run(lib)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"{kernel} of {name} disagrees with its twin ({index})")
-        times = [[] for _ in libs]
-        for j in order:
-            times[j].append(cuda_ms(lambda: run(libs[j][1]), reps=20))
-        emit({"phase": "fm_against", "kernel": kernel, "index": index,
-              "order": [libs[j][0] for j in order], "bit_equal": True,
-              "ms": {name: t for (name, _, _), t in zip(libs, times)}})
-    emit({"phase": "fm_against", "ptxas": {n: p for n, _, p in libs}})
+    big_lanes = fm_search.fm_smem(big["fm"], torch.from_numpy(
+        big["reads"]).cuda(), lens_d, st)
+    cases = [("fm_smem", "align genome, L2-resident", smem(fm, reads)),
+             ("fm_sa_walk", "align genome, L2-resident, lanes' ranks",
+              walk(walk_fm, ranks)),
+             ("fm_smem", "random FMD text, beyond L2",
+              smem(big["fm"], big["reads"])),
+             ("fm_sa_walk", "random FMD text, beyond L2, uniform ranks",
+              walk(big["fm"], big["ranks"])),
+             ("fm_sa_walk", "random FMD text, beyond L2, find_seeds ranks",
+              walk(big["fm"], _seed_ranks(big_lanes, st)))]
+    for kernel, case, (want, runs) in cases:
+        _in_turns(kernel, case, runs, want)
+    del big, big_lanes, cases
+    torch.cuda.empty_cache()
+
+    def old_scan(lib, cols):     # a389f54's wrapper, its host syncs kept
+        gid, s1, e1, lo2, hi2 = cols
+        n = gid.shape[0]
+        seg = sv_cluster.segments(gid)
+        local = torch.empty(n, dtype=torch.int32, device="cuda")
+        count = torch.empty(seg.shape[0], dtype=torch.int32, device="cuda")
+        rc = lib.ssq_sv_cluster(
+            seg.data_ptr(), seg.shape[0], n, s1.data_ptr(), e1.data_ptr(),
+            lo2.data_ptr(), hi2.data_ptr(), local.data_ptr(),
+            count.data_ptr(), stream())
+        check(rc == 0, f"sv_cluster launch failed ({rc})")
+        return [sv_cluster._globalise(local, count, seg, n)]
+
+    def new_scan(lib, cols):     # this checkout's wrapper, on lib
+        n = cols[0].shape[0]
+        nb = (n + sv_cluster.TILE_ROWS - 1) // sv_cluster.TILE_ROWS
+        tile_key = torch.empty(nb, dtype=torch.int64, device="cuda")
+        tile_count = torch.empty(nb, dtype=torch.int32, device="cuda")
+        out = torch.empty(n, dtype=torch.int32, device="cuda")
+        rc = lib.ssq_sv_cluster(
+            cols[0].data_ptr(), n, *(c.data_ptr() for c in cols[1:]),
+            tile_key.data_ptr(), tile_count.data_ptr(), out.data_ptr(),
+            stream())
+        check(rc == 0, f"sv_cluster launch failed ({rc})")
+        return [out]
+
+    sv = _sv_aligned(work, args)
+    for shape, cols in (("sv_phase", _sweep_cols(sv)),
+                        ("genome", sv_cases.sweep_columns("genome",
+                                                          seed=args.seed)),
+                        ("genome-piles", sv_cases.sweep_columns(
+                            "genome-piles", seed=args.seed))):
+        dev = [torch.from_numpy(np.ascontiguousarray(c)).cuda()
+               for c in cols]
+        want = [sv_cluster.cluster_scan_plain(*(torch.from_numpy(c)
+                                                for c in cols)).cuda()]
+        runs = [(name, lambda d=dev, l=lib, t=this:
+                 (new_scan if t else old_scan)(l, d))
+                for name, lib, this, _ in sv_libs]
+        synced = [name for name, _, this, _ in sv_libs if this]
+        _in_turns("sv_cluster", f"{shape}, {len(cols[0])} rows", runs, want,
+                  queued=synced)
+        emit({"phase": "against", "kernel": "sv_cluster",
+              "case": f"{shape}, {len(cols[0])} rows",
+              "profiler_us_per_call": {
+                  name: _kernel_split(run) for name, run in runs
+                  if name in synced}})
+    emit({"phase": "against", "ptxas": {
+        "earlier": {stem: {name: lines for name, _, _, lines in libs}
+                    for stem, libs in earlier.items()},
+        "this": {m.__name__.rsplit(".", 1)[1]: [
+            l.strip() for l in m.BUILD_INFO.get("ptxas", "").splitlines()
+            if "registers" in l or "spill" in l]
+            for m in (fm_search, sv_cluster)}}})
 
 
 def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
@@ -1199,21 +1382,14 @@ def _sv_truth_match(recs, events, ta, tb, names):
     return ([i in kinds for i in range(len(events))], junctions, calls)
 
 
-def phase_sv(work, args):
-    """sv at 2 Mbp × 30x through the CLI on cuda; returns (the sweep
-    kernel's launches in that run, the run's sorted sweep inputs)."""
+def _sv_aligned(work, args):
+    """The sv phase's input: two contigs carrying the planted SVs, 30x of
+    pairs from both haplotypes aligned by the port's CLI on cuda."""
     import numpy as np
-    import torch
 
     from speedseq_tpu_torch import cli
     from speedseq_tpu_torch.formats.fasta import decode_bases
-    from speedseq_tpu_torch.formats.vcf import read_vcf
-    from speedseq_tpu_torch.ops import sv_cluster
-    from speedseq_tpu_torch.sv.cluster import evidence_columns
-    from speedseq_tpu_torch.sv.engine import SVConfig, SVSample, run_sv
-    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
     from speedseq_tpu_torch.utils import sim, sv_cases
-    from speedseq_tpu_torch.utils.metrics import metrics
 
     rng = np.random.default_rng(args.seed + 300)
     contigs, alts, events, (ta, tb) = sv_cases.plant_svs(SV_BP, rng)
@@ -1225,7 +1401,6 @@ def phase_sv(work, args):
             fh.write(f">{nm}\n" + "\n".join(seq[i:i + 60]
                                             for i in range(0, len(seq), 60))
                      + "\n")
-    total_bp = sum(SV_BP)
     # half the pairs from each haplotype, each of its contigs in
     # proportion to length (the alternates are chimeric, so their lengths
     # differ from the reference contigs'): 15x per haplotype everywhere
@@ -1249,6 +1424,45 @@ def phase_sv(work, args):
                    f1, f2])
     align_s = time.perf_counter() - t0
     check(rc == 0, f"align CLI for the sv input returned {rc}")
+    return {"fasta": fasta, "names": names, "events": events, "ta": ta,
+            "tb": tb, "aln": aln, "n_pairs": n_pairs, "align_s": align_s}
+
+
+def _sweep_cols(sv):
+    """The sweep's inputs (gid, s1, e1, lo2, hi2) of the sv phase's
+    evidence, sorted as ``evidence_columns`` sorts them."""
+    import numpy as np
+
+    from speedseq_tpu_torch.sv.cluster import evidence_columns
+    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
+
+    aln = sv["aln"]
+    stats = InsertStats.from_bam(aln + ".bam")
+    ev = collect_evidence([aln + ".discordants.bam"],
+                          [aln + ".splitters.bam"], [stats],
+                          ref_names=sv["names"])
+    _, gid, s1, l1, _, s2, l2, _ = evidence_columns(ev)
+    return tuple(np.asarray(c, np.int32)
+                 for c in (gid, s1, s1 + l1, s2, s2 + l2))
+
+
+def phase_sv(work, args):
+    """sv at 2 Mbp × 30x through the CLI on cuda; returns (the sweep
+    kernel's launches in that run, the run's sorted sweep inputs)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.ops import sv_cluster
+    from speedseq_tpu_torch.sv.engine import SVConfig, SVSample, run_sv
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    sv = _sv_aligned(work, args)
+    fasta, names, events = sv["fasta"], sv["names"], sv["events"]
+    ta, tb, n_pairs, align_s = sv["ta"], sv["tb"], sv["n_pairs"], sv["align_s"]
+    aln = sv["aln"]
+    total_bp = sum(SV_BP)
     bam = aln + ".bam"
 
     out = os.path.join(work, "sv")
@@ -1330,19 +1544,31 @@ def phase_sv(work, args):
           f"median CN over matched duplications {med(cn('DUP'))}")
     check(why is None, f"sv cpu vs cuda: {why}")
 
-    stats = InsertStats.from_bam(bam)
-    ev = collect_evidence([disc], [spl], [stats], ref_names=names)
-    _, gid, s1, l1, _, s2, l2, _ = evidence_columns(ev)
-    cols = tuple(np.asarray(c, np.int32)
-                 for c in (gid, s1, s1 + l1, s2, s2 + l2))
-    return launches, cols
+    return launches, _sweep_cols(sv)
+
+
+def _sweep_pieces(cols):
+    """Lengths of the pieces between the sweep's forced breaks (a gid
+    change, or start1 at or past the largest end1 of the gid's earlier
+    rows), from the packed keys' prefix max as the kernel finds them."""
+    import numpy as np
+
+    g, s1, e1 = (np.asarray(c, np.int64) for c in cols[:3])
+    key = (g << 32) | ((e1 & 0xFFFFFFFF) ^ 0x80000000)
+    prev = np.r_[np.iinfo(np.int64).min, np.maximum.accumulate(key)[:-1]]
+    brk = ((prev >> 32) != g) | (s1 >= (prev & 0xFFFFFFFF) - 2**31)
+    return np.diff(np.r_[np.flatnonzero(brk), len(g)])
 
 
 def phase_sv_kernel(cols_main, args, clock_hz: float):
-    """The sweep kernel against its twin at the sv phase's evidence and at
-    1,048,576 rows in 16 groups (a genome's row count in the worst case
-    for one thread per group); returns the kernels-line record (at the sv
-    phase's shape, the one the main path gives it)."""
+    """The sweep kernels against their twin at the sv phase's evidence, at
+    1,048,576 rows in 16 groups (uniform, almost all singletons) and at
+    1,048,576 rows in 256 skewed groups with piles of overlapping rows;
+    returns the kernels-line record (at the sv phase's shape, the one the
+    main path gives it).  The bound: the bytes, or the serial chain of
+    the longest piece between forced breaks (the function's own serial
+    work); the longest group's chain, the first design's figure, is
+    reported beside it."""
     import numpy as np
     import torch
 
@@ -1352,7 +1578,9 @@ def phase_sv_kernel(cols_main, args, clock_hz: float):
     rec = None
     for label, cols in (("sv_phase", cols_main),
                         ("genome", sv_cases.sweep_columns("genome",
-                                                          seed=args.seed))):
+                                                          seed=args.seed)),
+                        ("genome-piles", sv_cases.sweep_columns(
+                            "genome-piles", seed=args.seed))):
         host = [torch.from_numpy(c) for c in cols]
         dev = [c.cuda() for c in host]
         before = sv_cluster.LAUNCHES["sv_cluster"]
@@ -1361,7 +1589,7 @@ def phase_sv_kernel(cols_main, args, clock_hz: float):
         check(sv_cluster.LAUNCHES["sv_cluster"] == before + 1,
               "sv_cluster did not launch")
         # the twin on the card's tensors at the main path's shape; on the
-        # host at the genome's (65,536 row steps of small launches)
+        # host at a genome's (a row step of small launches per row rank)
         twin_in = dev if label == "sv_phase" else host
         t0 = time.perf_counter()
         want = sv_cluster.cluster_scan_plain(*twin_in).cpu()
@@ -1369,22 +1597,30 @@ def phase_sv_kernel(cols_main, args, clock_hz: float):
         max_err = int((got.long() - want.long()).abs().max())
         check(max_err == 0, f"sv_cluster disagrees with its twin ({label})")
         ms = cuda_ms(lambda: sv_cluster.cluster_scan(*dev), reps=20)
+        device_ms = cuda_ms(lambda: sv_cluster.cluster_scan(*dev), reps=20,
+                            queued=True)
         plain_ms = (cuda_ms(lambda: sv_cluster.cluster_scan_plain(*dev),
                             reps=2, warmup=1)
                     if label == "sv_phase" else None)
         n = len(cols[0])
         seg = np.diff(np.concatenate(
             [np.flatnonzero(np.r_[True, cols[0][1:] != cols[0][:-1]]), [n]]))
+        pieces = _sweep_pieces(cols)
         nbytes = 4.0 * 6 * n               # five columns read, ids written
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        chain_ms = int(seg.max()) * sv_cluster.CHAIN_OPS_PER_ROW / clock_hz * 1e3
+        per_row = sv_cluster.CHAIN_OPS_PER_ROW / clock_hz * 1e3
+        chain_ms = int(pieces.max()) * per_row
         bound = max(bytes_ms, chain_ms)
         emit({"phase": "kernels", "kernel": "sv_cluster", "shape": label,
               "rows": n, "groups": int(len(seg)),
-              "longest_group": int(seg.max()), "clusters": int(got[-1]) + 1,
-              "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
-              "plain_host_s": plain_s, "bytes": nbytes,
-              "bytes_ms": bytes_ms, "chain_ms": chain_ms, "bound_ms": bound})
+              "longest_group": int(seg.max()), "pieces": int(len(pieces)),
+              "longest_piece": int(pieces.max()),
+              "clusters": int(got[-1]) + 1, "bit_equal": True, "ms": ms,
+              "device_ms": device_ms,
+              "plain_ms": plain_ms, "plain_host_s": plain_s, "bytes": nbytes,
+              "bytes_ms": bytes_ms, "chain_ms": chain_ms,
+              "group_chain_ms": int(seg.max()) * per_row,
+              "bound_ms": bound})
         if label == "sv_phase":
             rec = {"name": "sv_cluster", "route": "cuda",
                    "source": "speedseq_tpu_torch/ops/csrc/sv_cluster.cu",
@@ -1439,9 +1675,11 @@ def phase_sv_combine(args) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fm-smem-against", nargs="+", metavar="CU",
-                    help="only time fm_search.cu against these builds of "
-                    "it, in turns (phase fm_against)")
+    ap.add_argument("--against", nargs="+", metavar="DIR",
+                    help="only time fm_search.cu and sv_cluster.cu against "
+                    "earlier versions' (each DIR holds either or both, "
+                    "with a389f54's C interface or this checkout's), in "
+                    "turns (phase against)")
     args = ap.parse_args()
 
     import torch
@@ -1481,12 +1719,12 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    if args.fm_smem_against:
+    if args.against:
         try:
             genome = synth.make_genome(GENOME, seed=args.seed, n_del=64)
             fasta = os.path.join(work, "genome.fa")
             synth.write_fasta(fasta, genome)
-            phase_fm_against(work, fasta, genome, args, args.fm_smem_against)
+            phase_against(work, fasta, genome, args, args.against)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(smi)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..index.fm import FMIndex
-from ..ops.fm_search import fm_sa_walk, fm_smem
+from ..ops.fm_search import SmemLanes, fm_sa_walk, fm_smem
 
 
 class Seeds(NamedTuple):
@@ -51,34 +51,42 @@ def sa_lookup(fm: FMIndex, r: torch.Tensor) -> torch.Tensor:
     return fm_sa_walk(fm, r)
 
 
+def hit_ranks(lanes: SmemLanes, B: int, G: int, min_seed_len: int = 19,
+              max_occ: int = 500, max_hits: int = 4):
+    """The ranks ``find_seeds`` looks up from ``fm_smem``'s lanes of B
+    reads x G anchors: up to max_hits SA positions per kept SMEM (unique
+    among consecutive anchors, at least min_seed_len long, 1..max_occ
+    occurrences), dead hits at rank 1.  Returns (ranks (B, G, max_hits)
+    int32, hit_ok (B, G, max_hits) bool)."""
+    qbeg = lanes.qbeg.reshape(B, G)
+    qend = lanes.qend.reshape(B, G)
+    ivk = lanes.k.reshape(B, G)
+    ivs = lanes.s.reshape(B, G)
+    # dedup identical SMEMs found from consecutive anchors
+    uniq = torch.ones((B, G), dtype=torch.bool, device=qbeg.device)
+    uniq[:, 1:] = (qbeg[:, 1:] != qbeg[:, :-1]) | (qend[:, 1:] != qend[:, :-1])
+    smem_ok = (uniq & (qend - qbeg >= min_seed_len) & (ivs > 0)
+               & (ivs <= max_occ) & lanes.alive0.reshape(B, G))
+    h = torch.arange(max_hits, dtype=torch.int32, device=qbeg.device)
+    hit_ok = smem_ok[..., None] & (h < ivs.clamp_max(max_hits)[..., None])
+    return torch.where(hit_ok, ivk[..., None] + h, 1), hit_ok
+
+
 def find_seeds(fm: FMIndex, reads: torch.Tensor, lengths: torch.Tensor,
                stride: int = 8, min_seed_len: int = 19, max_occ: int = 500,
                max_hits: int = 4) -> Seeds:
     """SMEM seeds of reads (B, L) base codes (4 = N/pad), lengths (B,):
     S = G * max_hits slots per read (bwa mem -k / -c defaults)."""
     B, L = reads.shape
-    dev = reads.device
     i32 = torch.int32
-    starts = grid(L, stride, dev)
+    starts = grid(L, stride, reads.device)
     G = starts.shape[0]
     lanes = fm_smem(fm, reads, lengths, starts)
     qbeg = lanes.qbeg.reshape(B, G)
-    qend = lanes.qend.reshape(B, G)
-    seed_len = qend - qbeg
-    ivk = lanes.k.reshape(B, G)
+    seed_len = lanes.qend.reshape(B, G) - qbeg
     ivs = lanes.s.reshape(B, G)
-
-    # dedup identical SMEMs found from consecutive anchors
-    uniq = torch.ones((B, G), dtype=torch.bool, device=dev)
-    uniq[:, 1:] = (qbeg[:, 1:] != qbeg[:, :-1]) | (qend[:, 1:] != qend[:, :-1])
-    smem_ok = (uniq & (seed_len >= min_seed_len) & (ivs > 0)
-               & (ivs <= max_occ) & lanes.alive0.reshape(B, G))
-
-    # up to max_hits SA positions per SMEM; dead hits look up rank 1
-    h = torch.arange(max_hits, dtype=i32, device=dev)
-    ranks = ivk[..., None] + h
-    hit_ok = smem_ok[..., None] & (h < ivs.clamp_max(max_hits)[..., None])
-    safe_ranks = torch.where(hit_ok, ranks, 1)
+    safe_ranks, hit_ok = hit_ranks(lanes, B, G, min_seed_len, max_occ,
+                                   max_hits)
     tpos = sa_lookup(fm, safe_ranks.reshape(-1)).reshape(B, G, max_hits)
 
     slen = seed_len[..., None].expand(B, G, max_hits)

@@ -15,7 +15,14 @@ suffix array:
   bitmap with popcount checkpoints), so an LF walk (``ops/fm_search.py``:
   ``fm_sa_walk``) meets a sample within 32 steps; indexes of at most
   ``dense_sa_max`` ranks also keep the full SA (``sa_dense``), and a
-  lookup is one gather.
+  lookup is one gather;
+- indexes on the card without the full SA also carry ``walk_rec``
+  (``walk_records``; the CPU walk, ``fm_sa_walk_plain``, reads none):
+  one 64-byte record per 128-row block of stored BWT rows holding what an
+  LF step of the walk reads (a checkpoint at the block's middle row, the
+  block's 8 BWT words, its rows' SA mark bits), so that a step touches one
+  line of device memory.  It costs 0.5 B a rank (128 MB at 2^28 ranks,
+  1 GiB at the 2^31 - 1 limit).
 
 Rank-space convention (bwa's): the conceptual BWT has seq_len+1 rows
 including the sentinel row at ``primary``; the stored arrays skip it and
@@ -61,6 +68,9 @@ class FMIndex(NamedTuple):
     sa_dense: Optional[torch.Tensor] = None  # (seq_len+1,) int32 full SA
     primary: int = 0
     seq_len: int = 0                         # 2 * l_pac
+    # (n_blocks + 1, 16) int32 LF-walk records (``walk_records``), where a
+    # cuda index keeps no full SA; else None
+    walk_rec: Optional[torch.Tensor] = None
 
     @classmethod
     def from_pac(cls, pac: np.ndarray, device="cpu") -> "FMIndex":
@@ -112,7 +122,7 @@ class FMIndex(NamedTuple):
         t = lambda a: torch.from_numpy(
             np.ascontiguousarray(a).view(np.int32)).to(device)
         base = cls.from_pac(idx.pac, device)
-        return base._replace(
+        fm = base._replace(
             count=t((1 + idx.L2[:4]).astype(np.int32)),
             occ_ckpt=t(idx.occ.astype(np.int32)),
             bwt=t(words.reshape(n_blocks, WORDS_PER_BLOCK)),
@@ -124,6 +134,9 @@ class FMIndex(NamedTuple):
             primary=int(idx.primary),
             seq_len=n,
         )
+        if fm.sa_dense is None and torch.device(device).type == "cuda":
+            fm = fm._replace(walk_rec=walk_records(fm))
+        return fm
 
 
 def _reconstruct_sa(idx: BWAIndex) -> np.ndarray:
@@ -164,6 +177,64 @@ def _reconstruct_sa(idx: BWAIndex) -> np.ndarray:
         r, p = r[fresh], p[fresh]
         sa[r] = p
     return sa
+
+
+# ----------------------------------------------------- the walk's records
+
+WALK_REC_INTS = 16      # a record: mid checkpoint 4, BWT words 8, marks 4
+_REC_CHUNK = 1 << 20    # blocks built at a time (bounds the int64 temporaries)
+
+
+def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values holding uint32 words -> int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def walk_records(fm: FMIndex) -> torch.Tensor:
+    """The LF walk's records, (n_blocks + 1, 16) int32 on the index's
+    device: per 128-row block b of stored BWT rows,
+
+    - ints 0-3: occurrences of each base in stored rows [0, m), m =
+      min(128 b + 64, seq_len) (a checkpoint at the block's middle row:
+      a row of the lower half counts down to it, a row of the upper half
+      up from it, so a step reads one checkpoint and one half-block);
+    - ints 4-11: the block's 8 BWT words (``bwt``);
+    - ints 12-15: the SA mark bits of the block's stored rows, bit j of
+      int 12 + q for stored row 128 b + 32 q + j.  Stored row kk is rank
+      kk + (kk >= primary); the sentinel rank ``primary`` has no stored
+      row (SA 0, always marked: the walk tests it apart).
+
+    The last record is zero: the walk loads row kk = primary of the
+    sentinel rank before it tests the rank, and where primary == seq_len
+    is a multiple of 128 that row is past the last block."""
+    i64 = torch.int64
+    dev = fm.bwt.device
+    nb = fm.bwt.shape[0]
+    marks = fm.sa_mark.to(i64) & _M32
+    rank_words = torch.zeros(4 * nb + 1, dtype=i64, device=dev)
+    rank_words[: marks.shape[0]] = marks[: 4 * nb + 1]
+    parts = []
+    for b0 in range(0, nb, _REC_CHUNK):
+        blk = torch.arange(b0, min(nb, b0 + _REC_CHUNK), dtype=i64,
+                           device=dev)
+        lower = (fm.seq_len - blk * OCC_INTERVAL).clamp(0, OCC_INTERVAL // 2)
+        wi = torch.arange(WORDS_PER_BLOCK // 2, dtype=i64, device=dev)
+        valid = (lower[:, None] - wi * BASES_PER_WORD).clamp(
+            0, BASES_PER_WORD)
+        mid = fm.occ_ckpt[blk] + _word_count_all(
+            fm.bwt[blk, : WORDS_PER_BLOCK // 2], valid)
+        # stored-row word q: rank bits 32q + j below primary, 32q + j + 1
+        # from it on (the rank words shifted down one bit)
+        q = (blk[:, None] * 4 + wi).reshape(-1)
+        here, nxt = rank_words[q], rank_words[q + 1]
+        shifted = (here >> 1) | ((nxt & 1) << 31)
+        below = (torch.ones_like(q) << (fm.primary - 32 * q).clamp(0, 32)) - 1
+        stored = (here & below) | (shifted & ~below & _M32)
+        parts.append(torch.cat([mid.to(torch.int32), fm.bwt[blk],
+                                _as_int32_bits(stored).reshape(-1, 4)], 1))
+    parts.append(torch.zeros(1, WALK_REC_INTS, dtype=torch.int32,
+                             device=dev))
+    return torch.cat(parts).contiguous()
 
 
 # ------------------------------------------------------------ occ and LF

@@ -60,14 +60,30 @@
 // start with s above 64), ~2.1 on average.  Each step also reads one byte
 // of the read, as before.
 //
-// fm_sa_walk: one thread per rank walks LF until a marked rank (every 32nd
-// text position is marked, so at most 32 steps) and returns the sampled SA
-// value plus the steps taken; it keeps the first design's occ4 lookup.
+// fm_sa_walk: per rank, the LF walk until a marked rank (every 32nd text
+// position is marked, so at most 32 steps); returns the sampled SA value
+// plus the steps taken.  What bounded the first design: a step was two
+// dependent rounds of loads on three arrays (the rank-space mark word,
+// tested first; then the BWT word and bwt_occ4's checkpoint row and up to
+// 8 words, read in a loop that could break), ~7 load instructions and,
+// beyond the L2, three random DRAM accesses a step, counting all four
+// bases where LF needs one.  This design reads the index's walk records
+// (index/fm.py: walk_records): one 64-byte record per 128-row block of
+// stored rows, its checkpoint taken at the block's middle row, its 8 BWT
+// words, and its rows' mark bits in stored-row space.  A step's three
+// loads (the checkpoint, the 16-byte half-block the row falls in, the
+// mark word) depend on the rank alone and come from one record, so they
+// are issued together and touch one 64-byte line: a row of the lower half
+// counts its base down to the checkpoint, a row of the upper half up from
+// it (a partial last block's lower half ends at seq_len).  The sentinel
+// rank (primary: SA 0, marked) has no stored row and is tested apart.
+// One rank a thread: two or four interleaved a thread were slower at the
+// ranks find_seeds passes (PERF.md).
 //
 // occ counting: a 2-bit pattern match of a packed word against a base and
 // __popc.  The mask of a word's first v bases is its top 2v bits, taken by
-// a clamped funnel shift (v = 0 and v = 16 need no special case; occ4's
-// prefix_mask special-cases them, since a C++ shift by 32 is undefined).
+// a clamped funnel shift (v = 0 and v = 16 need no special case, where a
+// C++ shift by 32 would be undefined).
 //
 // Bound (ops/fm_search.py: occ_ops and the OPS_* counts): a step needs two
 // occ lookups of one or two base classes (1-2 popcounts and ~3-5 int32
@@ -106,53 +122,9 @@ __device__ __forceinline__ int pick(int a0, int a1, int a2, int a3, int c) {
   return c == 0 ? a0 : c == 1 ? a1 : c == 2 ? a2 : a3;
 }
 
-__device__ __forceinline__ int cnt(const Fmd& f, int c) {
+template <typename F>
+__device__ __forceinline__ int cnt(const F& f, int c) {
   return pick(f.c0, f.c1, f.c2, f.c3, c);
-}
-
-// ------------------------------------------------ fm_sa_walk's lookup
-
-// the first `valid` of a word's 16 bases sit in its top 2*valid bits
-__device__ __forceinline__ uint32_t prefix_mask(int valid) {
-  if (valid <= 0) return 0u;
-  if (valid >= 16) return 0xFFFFFFFFu;
-  return 0xFFFFFFFFu << (32 - 2 * valid);
-}
-
-__device__ __forceinline__ int matches(uint32_t x, uint32_t patt,
-                                       uint32_t m) {
-  uint32_t nx = ~(x ^ patt);
-  return __popc(nx & (nx >> 1) & 0x55555555u & m);
-}
-
-// occurrences of each base in conceptual BWT rows [0, k) (bwa bwt_occ4)
-__device__ __forceinline__ void occ4(const Fmd& f, int k, int& o0, int& o1,
-                                     int& o2, int& o3) {
-  int kk = k - (k > f.primary ? 1 : 0);
-  kk = min(max(kk, 0), f.seq_len);
-  int block = kk >> 7;
-  int within = kk & 127;
-  int4 ck = __ldg(f.occ + block);
-  o0 = ck.x; o1 = ck.y; o2 = ck.z; o3 = ck.w;
-  const uint32_t* w = f.bwt + (size_t)min(block, f.n_blocks - 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int valid = within - 16 * i;
-    if (valid <= 0) break;
-    uint32_t m = prefix_mask(valid);
-    uint32_t x = __ldg(w + i);
-    o0 += matches(x, 0x00000000u, m);
-    o1 += matches(x, 0x55555555u, m);
-    o2 += matches(x, 0xAAAAAAAAu, m);
-    o3 += matches(x, 0xFFFFFFFFu, m);
-  }
-}
-
-__device__ __forceinline__ int bwt_char(const Fmd& f, int k) {
-  int kk = k - (k > f.primary ? 1 : 0);
-  kk = min(max(kk, 0), f.seq_len - 1);
-  uint32_t word = __ldg(f.bwt + (size_t)(kk >> 7) * 8 + ((kk & 127) >> 4));
-  return (word >> ((15 - (kk & 15)) * 2)) & 3;
 }
 
 // ---------------------------------------------- fm_smem's extension step
@@ -364,26 +336,86 @@ __global__ void fm_smem_kernel(const uint8_t* __restrict__ reads,
   alive_o[i] = alive0 ? 1 : 0;
 }
 
-__global__ void fm_sa_walk_kernel(const int* __restrict__ ranks, int n, Fmd fp,
-                                  const uint32_t* __restrict__ sa_mark,
-                                  const int* __restrict__ sa_ckpt,
-                                  const int* __restrict__ sa_vals, int n_vals,
-                                  int* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// ------------------------------------------------------------ the walk
+
+struct Walk {
+  const int* __restrict__ count;     // (4,) C'[c]
+  const int4* __restrict__ rec;      // (n_blocks + 1, 4): checkpoint, lower
+                                     // half, upper half, mark words
+  int full_blocks, primary, seq_len;
+  int c0, c1, c2, c3;
+};
+
+// one LF step's loads, from stored row kk's record
+struct StepLoad {
+  int4 ck;
+  uint4 half;
+  uint32_t mark;
+};
+
+__device__ __forceinline__ int stored_of(const Walk& f, int r) {
+  return r - (r > f.primary ? 1 : 0);
+}
+
+__device__ __forceinline__ StepLoad step_load(const Walk& f, int kk) {
+  const int4* row = f.rec + 4 * (size_t)(kk >> 7);
+  const int w = kk & 127;
+  StepLoad l;
+  l.ck = __ldg(row);
+  l.half = __ldg(reinterpret_cast<const uint4*>(row + 1 + (w >> 6)));
+  l.mark = __ldg(reinterpret_cast<const uint32_t*>(row + 3) + (w >> 5));
+  return l;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// LF of stored row kk: C'[c] + c's occurrences in stored rows [0, kk), c
+// the row's base; the upper half counts [64, w) up from the checkpoint,
+// the lower half [w, m) down to it (m = 64, or the rows a partial last
+// block holds below 64)
+__device__ __forceinline__ int lf_step(const Walk& f, int kk,
+                                       const StepLoad& l) {
+  const int blk = kk >> 7, w = kk & 127, a = w & 63;
+  const int c = (word_of(l.half, a >> 4) >> (30 - 2 * (a & 15))) & 3;
+  const Classes k = classes_of(c);
+  const bool up = w >= 64;
+  const int m = blk < f.full_blocks ? 64 : min(64, f.seq_len & 127);
+  const int lo = up ? 0 : a, hi = up ? a : m;
+  uint32_t bits[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t range = top_bases(hi - 16 * i) & ~top_bases(lo - 16 * i);
+    bits[i] = is_c(word_of(l.half, i), k) & range;
+  }
+  const int n = popc4(bits[0], bits[1], bits[2], bits[3]);
+  return cnt(f, c) + pick(l.ck.x, l.ck.y, l.ck.z, l.ck.w, c) + (up ? n : -n);
+}
+
+__global__ void __launch_bounds__(128) fm_sa_walk_kernel(
+    const int* __restrict__ ranks, int n, Walk fp,
+    const uint32_t* __restrict__ sa_mark, const int* __restrict__ sa_ckpt,
+    const int* __restrict__ sa_vals, int n_vals, int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fmd f = with_counts(fp);
+  Walk f = fp;
+  f.c0 = __ldg(f.count);
+  f.c1 = __ldg(f.count + 1);
+  f.c2 = __ldg(f.count + 2);
+  f.c3 = __ldg(f.count + 3);
   int r = __ldg(ranks + i);
   int steps = 0;
-  uint32_t w = __ldg(sa_mark + (r >> 5));
   for (int it = 0; it < 32; ++it) {
-    if ((w >> (r & 31)) & 1u) break;
-    int c = bwt_char(f, r);
-    int o0, o1, o2, o3;
-    occ4(f, r, o0, o1, o2, o3);
-    r = cnt(f, c) + pick(o0, o1, o2, o3, c);
+    const int kk = stored_of(f, r);
+    // every load before any test (the sentinel rank's kk may be seq_len,
+    // in the records' zero pad record, unread)
+    const StepLoad l = step_load(f, kk);
+    if (r == f.primary || ((l.mark >> (kk & 31)) & 1u)) break;
+    r = lf_step(f, kk, l);
     ++steps;
-    w = __ldg(sa_mark + (r >> 5));
   }
+  const uint32_t w = __ldg(sa_mark + (r >> 5));
   int at = __ldg(sa_ckpt + (r >> 5)) + __popc(w & ((1u << (r & 31)) - 1u));
   at = min(max(at, 0), n_vals - 1);
   out[i] = __ldg(sa_vals + at) + steps;
@@ -430,16 +462,24 @@ extern "C" int ssq_fm_smem(const uint8_t* reads, const int* lengths, int B,
   return (int)cudaGetLastError();
 }
 
+// rec: the walk records (16-byte aligned)
 extern "C" int ssq_fm_sa_walk(const int* ranks, int n, const int* count,
-                              const int* occ, const uint32_t* bwt,
-                              int n_blocks, int primary, int seq_len,
+                              const int* rec, int primary, int seq_len,
                               const uint32_t* sa_mark, const int* sa_ckpt,
                               const int* sa_vals, int n_vals, int* out,
                               cudaStream_t stream) {
   if (n <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(rec) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  Walk f;
+  f.count = count;
+  f.rec = reinterpret_cast<const int4*>(rec);
+  f.full_blocks = seq_len >> 7;
+  f.primary = primary;
+  f.seq_len = seq_len;
+  f.c0 = f.c1 = f.c2 = f.c3 = 0;
   const int threads = 128;
   fm_sa_walk_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(
-      ranks, n, make_fmd(count, occ, bwt, n_blocks, primary, seq_len),
-      sa_mark, sa_ckpt, sa_vals, n_vals, out);
+      ranks, n, f, sa_mark, sa_ckpt, sa_vals, n_vals, out);
   return (int)cudaGetLastError();
 }

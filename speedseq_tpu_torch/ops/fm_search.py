@@ -12,6 +12,9 @@ Two kernels, hand-written for Hopper in ``csrc/fm_search.cu``:
   the base's class and the classes above it (the source's head note);
 - ``fm_sa_walk``: per rank, the LF walk of ``speedseq_tpu/index/fm.py:
   sa_lookup`` (its 32-step ``fori_loop``) for indexes without a full SA.
+  A step's three loads (a checkpoint, a half-block, a mark word) come
+  from one 64-byte record of the index (``index/fm.py:walk_records``) and
+  are issued together.
 
 Each wrapper dispatches by device: a CUDA tensor launches the kernel (and
 raises if the launch fails), a CPU tensor runs the plain PyTorch twin
@@ -114,7 +117,7 @@ def _load() -> ctypes.CDLL:
                 vp, vp, vp]
             lib.ssq_fm_smem.restype = ci
             lib.ssq_fm_sa_walk.argtypes = [
-                vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, vp]
+                vp, ci, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp]
             lib.ssq_fm_sa_walk.restype = ci
             _lib = lib
     return _lib
@@ -125,7 +128,8 @@ def _check_fm(fm: FMIndex, dev: torch.device) -> None:
         raise ValueError("the FMIndex carries no FMD arrays "
                          "(build it with FMIndex.from_bwa_fm)")
     for t in (fm.count, fm.occ_ckpt, fm.bwt, fm.sa_mark, fm.sa_ckpt,
-              fm.sa_vals):
+              fm.sa_vals) + ((fm.walk_rec,) if fm.walk_rec is not None
+                             else ()):
         if t.device != dev:
             raise ValueError(f"FMD arrays on {t.device}, queries on {dev}")
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -179,23 +183,34 @@ def fm_smem(fm: FMIndex, reads: torch.Tensor, lengths: torch.Tensor,
     return SmemLanes(*out, alive0)
 
 
+def walk_args(fm: FMIndex):
+    """The index arguments of ``ssq_fm_sa_walk``: count, the walk records,
+    primary, seq_len and the SA samples."""
+    return (fm.count.data_ptr(), fm.walk_rec.data_ptr(), fm.primary,
+            fm.seq_len, fm.sa_mark.data_ptr(), fm.sa_ckpt.data_ptr(),
+            fm.sa_vals.data_ptr(), fm.sa_vals.shape[0])
+
+
 def fm_sa_walk(fm: FMIndex, ranks: torch.Tensor) -> torch.Tensor:
-    """SA value (int32) of each rank in [1, seq_len] by the LF walk."""
+    """SA value (int32) of each rank in [1, seq_len] by the LF walk.  On
+    cuda the index must carry its walk records (``from_bwa_fm`` builds
+    them for a cuda index without the full SA; ``walk_records`` for any)."""
     dev = ranks.device
     if dev.type == "cpu":
         return fm_sa_walk_plain(fm, ranks)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_fm(fm, dev)
+    if fm.walk_rec is None:
+        raise ValueError("the FMIndex carries no walk records (build them "
+                         "with index.fm.walk_records)")
     flat = ranks.reshape(-1).to(torch.int32).contiguous()
     out = torch.empty_like(flat)
     if flat.numel() == 0:
         return out.reshape(ranks.shape)
     lib = _load()
     rc = lib.ssq_fm_sa_walk(
-        flat.data_ptr(), flat.numel(), *_index_args(fm),
-        fm.sa_mark.data_ptr(), fm.sa_ckpt.data_ptr(), fm.sa_vals.data_ptr(),
-        fm.sa_vals.shape[0], out.data_ptr(),
+        flat.data_ptr(), flat.numel(), *walk_args(fm), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "fm_sa_walk")
     LAUNCHES["fm_sa_walk"] += 1

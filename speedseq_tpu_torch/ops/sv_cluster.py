@@ -6,10 +6,12 @@ rows sorted by (gid, start1, start2); a row starts a new cluster when the
 gid changes or when it fails the 2-D overlap test against the running
 extents of the current cluster (max end1, min lo2, max hi2).
 
-A CUDA tensor launches the hand kernel of ``csrc/sv_cluster.cu`` (one
-thread per gid segment, serial over its rows; it raises if the launch
-fails); a CPU tensor runs ``cluster_scan_plain``, a loop over row ranks
-vectorised across segments, which is the kernel's executable
+A CUDA tensor launches the hand kernels of ``csrc/sv_cluster.cu`` (the
+rows split at forced breaks, found by a max-scan of packed (gid, end1)
+keys; one thread walks each piece between them; an integer scan turns
+the cluster starts into ids), with no host sync; it raises if a launch
+fails.  A CPU tensor runs ``cluster_scan_plain``, a loop over row ranks
+vectorised across segments, which is the kernels' executable
 specification.  There is no fallback from one to the other.
 
 ``cluster_extents`` gives the per-cluster [lo, hi) span of one breakpoint
@@ -32,8 +34,11 @@ SOURCE = os.path.join(CSRC_DIR, "sv_cluster.cu")
 # the overlap test's three compares (independent of each other), the and
 # that combines them, and the select of each extent (its max/min against
 # the row runs beside the compares; the counter feeds no later test) --
-# the figure chip_smoke.py's serial-chain bound uses
+# the figure chip_smoke.py's serial-chain bound uses, over the longest
+# piece between forced breaks
 CHAIN_OPS_PER_ROW = 3
+# rows of one tile of the multi-block sweep (csrc/sv_cluster.cu TILE_ROWS)
+TILE_ROWS = 1024
 
 # launches of the kernel since the last reset (plain-twin calls not counted)
 LAUNCHES = {"sv_cluster": 0}
@@ -60,7 +65,7 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ssq_sv_cluster.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp,
+            lib.ssq_sv_cluster.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp,
                                            vp, vp]
             lib.ssq_sv_cluster.restype = ci
             _lib = lib
@@ -93,30 +98,34 @@ def _globalise(local, count, seg_start, n):
 
 def cluster_scan(gid, s1, e1, lo2, hi2) -> torch.Tensor:
     """Cluster id (int32) of every row of evidence sorted by (gid, start1,
-    start2); e1 = start1 + len1, lo2 = start2, hi2 = start2 + len2."""
+    start2); e1 = start1 + len1, lo2 = start2, hi2 = start2 + len2.  On
+    cuda, gid must be int32-valued and non-decreasing (the sort gives
+    that)."""
     n = _check((gid, s1, e1, lo2, hi2))
     dev = gid.device
     if dev.type == "cpu":
         return cluster_scan_plain(gid, s1, e1, lo2, hi2)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return torch.zeros(0, dtype=torch.int32, device=dev)
+        return out
+    if n > 2**31 - 2 * TILE_ROWS:
+        raise ValueError(f"{n} rows: more than the sweep's int32 row "
+                         f"indices hold")
     lib = _load()
-    i32 = lambda t: t.to(torch.int32).contiguous()
-    s1, e1, lo2, hi2 = i32(s1), i32(e1), i32(lo2), i32(hi2)
-    seg_start = segments(gid)
-    n_seg = seg_start.shape[0]
-    local = torch.empty(n, dtype=torch.int32, device=dev)
-    count = torch.empty(n_seg, dtype=torch.int32, device=dev)
+    cols = [t.to(torch.int32).contiguous() for t in (gid, s1, e1, lo2, hi2)]
+    nb = (n + TILE_ROWS - 1) // TILE_ROWS
+    tile_key = torch.empty(nb, dtype=torch.int64, device=dev)
+    tile_count = torch.empty(nb, dtype=torch.int32, device=dev)
+    g, a, b, c, d = (t.data_ptr() for t in cols)
     rc = lib.ssq_sv_cluster(
-        seg_start.data_ptr(), n_seg, n, s1.data_ptr(), e1.data_ptr(),
-        lo2.data_ptr(), hi2.data_ptr(), local.data_ptr(), count.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        g, n, a, b, c, d, tile_key.data_ptr(), tile_count.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sv_cluster launch failed: cudaError {rc}")
     LAUNCHES["sv_cluster"] += 1
-    return _globalise(local, count, seg_start, n)
+    return out
 
 
 def cluster_scan_plain(gid, s1, e1, lo2, hi2) -> torch.Tensor:

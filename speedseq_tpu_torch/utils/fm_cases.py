@@ -11,7 +11,9 @@ genomes, made from a seed:
   many steps, and the T-rich rows at the end of the BWT are reached.
 
 Both have 2 * l_pac ≡ 90 (mod 128): the last occ block is partial, with
-rows past its half-way point.  Reads cycle through these kinds (the FMD
+rows past its half-way point.  A third genome, ``last_rank_genome``, is
+the walk's case of a whole last block with the sentinel rank last
+(primary == seq_len): the LF walk's records have no block past it.  Reads cycle through these kinds (the FMD
 text is the genome followed by its reverse complement; its start and end
 are the rows around ``primary``, the sentinel row):
 
@@ -64,6 +66,26 @@ def edge_genomes(seed: int = 0) -> Dict[str, SynthGenome]:
         out[name] = SynthGenome(names=["c0", "c1"], contigs=contigs,
                                 deletions=[], duplication=(0, 0, 0))
     return out
+
+
+def last_rank_genome(seed: int = 0, l_pac: int = 4096,
+                     head: int = 24) -> SynthGenome:
+    """One contig of l_pac ≡ 0 (mod 64) bases (2 * l_pac, seq_len, a whole
+    number of 128-row occ blocks) that starts with ``head`` Ts and holds no
+    other run of ``head`` As or Ts: the text (genome + reverse complement)
+    is then its own largest suffix, so the sentinel rank, primary, is
+    seq_len."""
+    assert l_pac % 64 == 0
+    rng = np.random.default_rng(seed)
+    while True:
+        rest = rng.integers(0, 4, l_pac - head).astype(np.uint8)
+        edges = np.flatnonzero(np.diff(rest.astype(np.int16)) != 0)
+        runs = np.diff(np.r_[-1, edges, len(rest) - 1])
+        if runs.max() < head:
+            break
+    contig = np.concatenate([np.full(head, 3, np.uint8), rest])
+    return SynthGenome(names=["c0"], contigs=[contig], deletions=[],
+                       duplication=(0, 0, 0))
 
 
 def fmd_text(pac: np.ndarray) -> np.ndarray:

@@ -5,8 +5,11 @@ package), the card tests (cuda vs cpu) and chip_smoke.py.
   SV types, two samples (the generator of tests/test_sv.py:337-358);
 - ``pile_evidence``: one cluster of n overlapping DEL rows;
 - ``sweep_columns``: sorted cluster-sweep inputs (gid, s1, e1, lo2, hi2)
-  for the named shapes the sweep must handle, including a genome's row
-  count in 16 groups (the worst case for one thread per group);
+  for the named shapes the sweep must handle, including two synthetic
+  shapes of 1,048,576 rows: 16 uniform groups (the worst case for one
+  thread per group) and 256 skewed groups with piles (a guessed
+  distribution, from no real evidence set); ``sweep_adversarial``:
+  inputs at the edges of the kernel's forced-break split;
 - ``unmapped_tail_bam`` / ``depth_tier_bam``: the SVTyper fixtures of
   tests/test_sv.py:457-568 (a BAM with an unmapped tail; one breakpoint at
   50x the depth of eight others), each with its calls;
@@ -69,16 +72,21 @@ def pile_evidence(rng: np.random.Generator, n: int) -> List[Breakpoint]:
     return out
 
 
-SWEEP_SHAPES = ("random", "one-row", "one-group", "one-row-groups", "genome")
+SWEEP_SHAPES = ("random", "one-row", "one-group", "one-row-groups", "genome",
+                "genome-piles")
 
 
 def sweep_columns(shape: str, seed: int = 0):
     """(gid, s1, e1, lo2, hi2) int32 numpy columns sorted by (gid, s1,
-    lo2).  ``genome`` is 1,048,576 rows (a genome's evidence count) in 16
+    lo2).  Both 1,048,576-row shapes are synthetic.  ``genome`` is 16
     groups spread uniformly over 200 Mbp each, almost all singletons: the
-    worst case for one thread per group, not a genome's traffic, whose
-    hundreds to thousands of (svtype, tid1, tid2, strand1, strand2) groups
-    pile up at breakpoints."""
+    worst case for one thread per group, not a genome's evidence.
+    ``genome-piles`` is 256 groups of skewed sizes (weights 1/k^0.75: the
+    largest ~8 %), 90 % of each group scattered over 200 Mbp and 10 % in
+    piles of 64-4,096 mutually overlapping rows: a guessed distribution,
+    with no real evidence set behind its group or pile sizes."""
+    if shape == "genome-piles":
+        return _genome_piles(seed)
     rng = np.random.default_rng(seed)
     n, groups, span = {"random": (3000, 12, 40_000),
                        "one-row": (1, 1, 1000),
@@ -93,9 +101,77 @@ def sweep_columns(shape: str, seed: int = 0):
     l1 = rng.integers(20, 600, n)
     lo2 = s1 + rng.integers(300, 5000, n)
     l2 = rng.integers(20, 600, n)
+    return _sorted(gid, s1, s1 + l1, lo2, lo2 + l2)
+
+
+def _sorted(gid, s1, e1, lo2, hi2):
     order = np.lexsort((lo2, s1, gid))
-    cols = (gid, s1, s1 + l1, lo2, lo2 + l2)
-    return tuple(c[order].astype(np.int32) for c in cols)
+    return tuple(np.asarray(c)[order].astype(np.int32)
+                 for c in (gid, s1, e1, lo2, hi2))
+
+
+def _genome_piles(seed: int, n: int = 1 << 20, groups: int = 256,
+                  span: int = 200_000_000):
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, groups + 1) ** 0.75
+    sizes = np.floor(n * w / w.sum()).astype(np.int64)
+    sizes[: n - sizes.sum()] += 1
+    cols = [[] for _ in range(5)]
+    for g, size in enumerate(sizes):
+        piles, left = [], int(size) // 10
+        while left >= 64:
+            piles.append(min(left, int(rng.integers(64, 4097))))
+            left -= piles[-1]
+        k = int(size) - sum(piles)             # the scattered rows
+        s1 = rng.integers(0, span, k)
+        l1 = rng.integers(20, 600, k)
+        lo2 = s1 + rng.integers(300, 5000, k)
+        l2 = rng.integers(20, 600, k)
+        parts = [(s1, s1 + l1, lo2, lo2 + l2)]
+        for m in piles:   # every side contains [c + 60, c + 70): one cluster
+            c = int(rng.integers(0, span))
+            ps1 = c + rng.integers(0, 60, m)
+            plo2 = c + 500 + rng.integers(0, 60, m)
+            parts.append((ps1, ps1 + rng.integers(70, 100, m), plo2,
+                          plo2 + rng.integers(70, 100, m)))
+        cols[0].append(np.full(int(size), g))
+        for i in range(4):
+            cols[i + 1].append(np.concatenate([p[i] for p in parts]))
+    return _sorted(*(np.concatenate(c) for c in cols))
+
+
+def sweep_adversarial():
+    """Named sweep inputs at the edges of the forced-break split (sorted
+    like ``sweep_columns``'s): a gid change after a huge end1, end1 at
+    both int32 limits, start1 equal to and one below the largest earlier
+    end1 of its gid (P), and single-row segments among longer ones."""
+    big, small = 2**31 - 1, -(2**31)
+    rows = {
+        # gid 0 ends at INT32_MAX; gid 1's rows start below it
+        "gid change after a huge end1": [
+            (0, 5, big, 10, 20), (1, 6, 9, 10, 20), (1, 7, 12, 10, 20),
+            (2, 0, 3, 10, 20)],
+        "end1 at both int32 limits": [
+            (0, small, small, small, small + 5), (0, small, small + 1,
+                                                   small, small + 5),
+            (0, small + 1, big, small + 1, small + 9),
+            (0, big - 1, big, small + 2, small + 8),
+            (0, big - 1, big, big - 5, big), (1, small, small, 0, 1),
+            (1, small, big, 0, 1), (1, 0, 0, 0, 1)],
+        # s1 = P - 1 is tested (it overlaps, or not), s1 = P is forced
+        "s1 at P and one below": [
+            (0, 10, 100, 0, 50), (0, 99, 100, 10, 40), (0, 100, 130, 10, 40),
+            (0, 129, 140, 10, 40), (0, 140, 150, 10, 40),
+            (1, 10, 100, 0, 50), (1, 99, 100, 60, 70), (1, 100, 110, 0, 5),
+            # P = 100 from a closed cluster: s1 = 99 fails the test
+            (2, 0, 100, 0, 5), (2, 50, 60, 90, 95), (2, 59, 70, 90, 95),
+            (2, 99, 100, 0, 5), (2, 100, 101, 0, 5)],
+        "single-row segments": [
+            (0, 5, 10, 0, 3), (1, 0, 50, 0, 3), (1, 1, 2, 1, 2),
+            (2, 7, 8, 0, 9), (3, 0, 9, 0, 9), (3, 8, 9, 8, 9), (4, 1, 2, 3, 4)],
+    }
+    return {name: _sorted(*np.asarray(r, np.int64).T)
+            for name, r in rows.items()}
 
 
 def _crossing(name, p, flag=0x1 | 0x2 | 0x20):

@@ -4,7 +4,9 @@ FMD arrays of ``FMIndex.from_bwa_fm``, ``occ_all`` over every rank
 and by the LF walk, ``find_seeds``, ``chain_seeds`` (planted weight
 ties), ``weight_candidates`` in the FM branch, and ``align_fastq(
 seed_mode="fm")`` record-equal to the JAX run; then the CLI's ``align``
-and ``realign --seed-mode fm``.  Integers are compared bit-equal.
+and ``realign --seed-mode fm``; numpy models of both kernels' steps (the
+``fm_smem`` extension, the ``fm_sa_walk`` LF step on the walk records)
+against the twins.  Integers are compared bit-equal.
 
 The JAX align run takes its Pallas kernels in interpret mode (test-side
 monkeypatches, as tests/test_torch_align.py does); batch_size=60 keeps it
@@ -421,6 +423,154 @@ def test_occ_checkpoints_count_their_blocks(edge, genome):
     occ = T.occ_ckpt.numpy()
     assert np.array_equal(occ[1:len(counts) + 1] - occ[:len(counts)], counts)
     assert T.seq_len % 128 > 64 and occ[-1].sum() == T.seq_len
+
+
+# ------------------------------------------------ fm_sa_walk's records
+
+@pytest.fixture(scope="module")
+def last_rank(tmp_path_factory):
+    """The port's FMD index of ``fm_cases.last_rank_genome``: whole occ
+    blocks only, and the sentinel rank last (primary == seq_len)."""
+    fa = str(tmp_path_factory.mktemp("tfmlast") / "g.fa")
+    synth.write_fasta(fa, fm_cases.last_rank_genome(seed=41))
+    build_index(fa)
+    T = tfm.FMIndex.from_bwa_fm(load_index(fa))
+    assert T.primary == T.seq_len and T.seq_len % 128 == 0
+    return T
+
+
+def _walk_indexes(index, edge, last_rank):
+    """(name, index with its walk records, full SA) of the test index, both
+    edge genomes (their last occ block partial: 16 rows, and 90 rows with
+    an upper half) and the last-rank genome (no partial block, primary ==
+    seq_len)."""
+    Tw = index["Tw"]
+    out = [("test", Tw._replace(walk_rec=tfm.walk_records(Tw)),
+            index["jsa"])]
+    for name, T in (("random", edge["random"][2]),
+                    ("tandem", edge["tandem"][2]), ("last rank", last_rank)):
+        out.append((name, T._replace(walk_rec=tfm.walk_records(T)),
+                    T.sa_dense.numpy().astype(np.int64)))
+    return out
+
+
+def _codes(T):
+    words = T.bwt.numpy().view(np.uint32)
+    return ((words[..., None] >> (30 - 2 * np.arange(16, dtype=np.uint32)))
+            & 3).reshape(-1)[: T.seq_len].astype(np.int64)
+
+
+def _walk_model(T, ranks):
+    """``fm_search.cu``'s walk in numpy, reading only the records (and the
+    SA samples at the end), bit for bit: (SA values, the census of what
+    the steps reached)."""
+    rec = T.walk_rec.numpy().view(np.uint32).astype(np.int64)
+    count = T.count.numpy().astype(np.int64)
+    full = T.seq_len >> 7
+    r = ranks.astype(np.int64)
+    steps = np.zeros_like(r)
+    live = np.ones(len(r), bool)
+    seen = {k: False for k in ("lower half", "upper half",
+                               "partial block, lower", "partial block, upper",
+                               "sentinel rank", "sentinel past the last row",
+                               "marked at the start", "31 steps")}
+    for it in range(32):
+        kk = r - (r > T.primary)
+        seen["sentinel past the last row"] |= bool(
+            (live & (kk == T.seq_len)).any())
+        blk, w = kk >> 7, kk & 127
+        row = rec[blk]
+        up = w >= 64
+        half = np.where(up[:, None], row[:, 8:12], row[:, 4:8])
+        mark = row[np.arange(len(r)), 12 + (w >> 5)]
+        marked = (r == T.primary) | (((mark >> (w & 31)) & 1) == 1)
+        seen["sentinel rank"] |= bool((live & (r == T.primary)).any())
+        if it == 0:
+            seen["marked at the start"] = bool(marked.any())
+        live &= ~marked
+        a = w & 63
+        word = half[np.arange(len(r)), a >> 4]
+        c = (word >> (30 - 2 * (a & 15))) & 3
+        m = np.where(blk < full, 64, min(64, T.seq_len & 127))
+        lo, hi = np.where(up, 0, a), np.where(up, a, m)
+        i4 = 16 * np.arange(4)
+        rng = (_top_bases(hi[:, None] - i4)
+               & ~_top_bases(lo[:, None] - i4) & _M32)
+        eq, _ = _class_bits(half, c[:, None])
+        n = np.bitwise_count((eq & rng).astype(np.uint64)).astype(
+            np.int64).sum(1)
+        occ = np.take_along_axis(row[:, :4], c[:, None], 1)[:, 0] + np.where(
+            up, n, -n)
+        for k, at in (("lower half", ~up), ("upper half", up),
+                      ("partial block, lower", ~up & (blk == full)),
+                      ("partial block, upper", up & (blk == full))):
+            seen[k] |= bool((live & at).any())
+        r = np.where(live, count[c] + occ, r)
+        steps += live
+        if not live.any():
+            break
+    seen["31 steps"] = bool((steps == 31).any())     # the longest walk
+    mk = T.sa_mark.numpy().view(np.uint32).astype(np.int64)[r >> 5]
+    below = (np.int64(1) << (r & 31)) - 1
+    at = T.sa_ckpt.numpy()[r >> 5] + np.bitwise_count(
+        (mk & below).astype(np.uint64)).astype(np.int64)
+    sa = T.sa_vals.numpy()[np.clip(at, 0, T.sa_vals.shape[0] - 1)] + steps
+    return sa, seen
+
+
+def test_walk_records(index, edge, last_rank):
+    """The walk's records against the index's arrays, built here from the
+    BWT codes and the full SA: per block the counts below its middle row
+    (min(128 b + 64, seq_len)), its 8 BWT words, and the SA mark bits of
+    its stored rows (stored row kk is rank kk + (kk >= primary)); then one
+    zero record, which the sentinel rank's load reads where primary ==
+    seq_len fills the last block."""
+    for name, T, sa in _walk_indexes(index, edge, last_rank):
+        rec = T.walk_rec.numpy()
+        nb = T.bwt.shape[0]
+        assert rec.shape == (nb + 1, tfm.WALK_REC_INTS), name
+        assert rec.dtype == np.int32 and not rec[nb].any(), name
+        rec = rec[:nb]
+        codes = _codes(T)
+        mid = np.minimum(128 * np.arange(nb) + 64, T.seq_len)
+        below = np.stack([np.r_[0, np.cumsum(codes == c)][mid]
+                          for c in range(4)], 1)
+        assert np.array_equal(rec[:, :4], below), name
+        assert np.array_equal(rec[:, 4:12], T.bwt.numpy()), name
+        kk = np.arange(nb * 128)
+        rank = kk + (kk >= T.primary)
+        bit = np.zeros(nb * 128, np.uint64)
+        ok = kk < T.seq_len
+        bit[ok] = (sa[rank[ok]] % 32 == 0)
+        words = (bit.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1)
+        assert np.array_equal(rec[:, 12:].view(np.uint32).reshape(-1),
+                              words.astype(np.uint32)), name
+    # only a cuda index without the full SA carries them: the CPU walk is
+    # the plain twin, which reads none
+    assert index["T"].walk_rec is None and index["Tw"].walk_rec is None
+
+
+def test_walk_kernel_model(index, edge, last_rank):
+    """A numpy model of the walk kernel's steps, reading only the records,
+    bit-equal to ``fm_sa_walk_plain`` and the full SA at every rank
+    1..seq_len of the test index, both edge genomes and the last-rank
+    genome, the ranks around the sentinel among them; the steps reach the
+    lower and the upper half of full and partial blocks, the sentinel rank
+    (also where it is seq_len, past the last stored row, in a whole last
+    block) and 31-step walks."""
+    reached = {}
+    for name, T, sa in _walk_indexes(index, edge, last_rank):
+        ranks = np.arange(1, T.seq_len + 1)
+        got, seen = _walk_model(T, ranks)
+        plain = fm_search.fm_sa_walk_plain(T, torch.from_numpy(ranks))
+        assert np.array_equal(got, plain.numpy()), name
+        assert np.array_equal(got, sa[1:]), name
+        near = np.arange(T.primary - 2, T.primary + 3)
+        near = near[(near >= 1) & (near <= T.seq_len)]
+        assert np.array_equal(_walk_model(T, near)[0], sa[near]), name
+        for k, v in seen.items():
+            reached[k] = reached.get(k, False) or v
+    assert not [k for k, v in reached.items() if not v]
 
 
 def _planted_seeds(rng, B=64, S=24):

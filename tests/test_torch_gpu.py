@@ -125,6 +125,40 @@ def test_sv_cluster_kernel_matches_twin(shape):
     assert torch.equal(got.cpu(), sv_cluster.cluster_scan_plain(*cols))
 
 
+@pytest.mark.parametrize("case", sorted(sv_cases.sweep_adversarial()))
+def test_sv_cluster_kernel_adversarial(case):
+    """The sweep kernel on the inputs at the edges of its forced-break
+    split (int32 limits, start1 at P and one below, gid changes after a
+    huge end1, single-row segments) equal to its twin."""
+    _need_card()
+    cols = [torch.from_numpy(c) for c in sv_cases.sweep_adversarial()[case]]
+    got = sv_cluster.cluster_scan(*(c.cuda() for c in cols))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sv_cluster.cluster_scan_plain(*cols))
+
+
+def test_sv_cluster_makes_no_host_sync():
+    """cluster_scan on cuda under torch's sync debug mode "error": a host
+    sync in the wrapper or its launches would raise.  Both launch plans:
+    one block (2,000 rows) and tiles (1,048,576 rows)."""
+    _need_card()
+    cases = [[torch.from_numpy(c) for c in sv_cases.sweep_columns(shape,
+                                                                  seed=5)]
+             for shape in ("one-group", "genome-piles")]
+    dev = [[c.cuda() for c in cols] for cols in cases]
+    sv_cluster.cluster_scan(*dev[0])            # builds the library
+    torch.cuda.synchronize()
+    before = sv_cluster.LAUNCHES["sv_cluster"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [sv_cluster.cluster_scan(*cols) for cols in dev]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sv_cluster.LAUNCHES["sv_cluster"] == before + 2
+    for g, cols in zip(got, cases):
+        assert torch.equal(g.cpu(), sv_cluster.cluster_scan_plain(*cols))
+
+
 @pytest.mark.parametrize("seed,n,trim", [(11, 200, 0.0), (5, 60, 0.01),
                                          (23, 400, 0.0)])
 def test_cluster_breakpoints_cuda_matches_cpu(seed, n, trim):
@@ -353,7 +387,8 @@ def test_fm_smem_kernel_matches_twin(fm_case, stride):
 
 @pytest.fixture(scope="module")
 def fm_edge(tmp_path_factory):
-    """``utils/fm_cases.py``'s two genomes' FMD indexes, on the card."""
+    """``utils/fm_cases.py``'s genomes' FMD indexes, on the card: the two
+    edge-case genomes and the last-rank genome (primary == seq_len)."""
     _need_card()
     from speedseq_tpu_torch.index.bwt import build_index
     from speedseq_tpu_torch.index.fm import FMIndex
@@ -361,7 +396,9 @@ def fm_edge(tmp_path_factory):
 
     d = tmp_path_factory.mktemp("gfmedge")
     out = {}
-    for name, g in fm_cases.edge_genomes(seed=31).items():
+    genomes = {**fm_cases.edge_genomes(seed=31),
+               "last-rank": fm_cases.last_rank_genome(seed=41)}
+    for name, g in genomes.items():
         fa = str(d / f"{name}.fa")
         synth.write_fasta(fa, g)
         out[name] = (g, FMIndex.from_bwa_fm(build_index(fa), device="cuda"))
@@ -409,6 +446,31 @@ def test_fm_sa_walk_kernel_matches_twin_and_dense(fm_case):
     assert fm_search.LAUNCHES["fm_sa_walk"] == before + 1
     assert torch.equal(got, fm_search.fm_sa_walk_plain(walk, ranks))
     assert torch.equal(got, fms[True].sa_dense[1:])
+
+
+@pytest.mark.parametrize("genome", ["random", "tandem", "last-rank"])
+def test_fm_sa_walk_edge_genomes_every_rank(fm_edge, genome):
+    """The walk kernel at every rank of ``utils/fm_cases.py``'s genomes
+    (the edge genomes' last occ block partial, with an upper half; the
+    last-rank genome's whole, with the sentinel rank seq_len past its
+    last stored row) against its twin and the full SA; the index keeps its
+    full SA, so its walk records are built here (without them the wrapper
+    refuses the index)."""
+    _need_card()
+    from speedseq_tpu_torch.index.fm import walk_records
+    from speedseq_tpu_torch.ops import fm_search
+
+    _, fm = fm_edge[genome]
+    walk = fm._replace(walk_rec=walk_records(fm))
+    ranks = torch.arange(1, fm.seq_len + 1, dtype=torch.int32, device="cuda")
+    before = fm_search.LAUNCHES["fm_sa_walk"]
+    got = fm_search.fm_sa_walk(walk, ranks)
+    torch.cuda.synchronize()
+    assert fm_search.LAUNCHES["fm_sa_walk"] == before + 1
+    assert torch.equal(got, fm_search.fm_sa_walk_plain(walk, ranks))
+    assert torch.equal(got, fm.sa_dense[1:])
+    with pytest.raises(ValueError, match="walk records"):
+        fm_search.fm_sa_walk(fm, ranks)
 
 
 @pytest.mark.parametrize("dense", [True, False])

@@ -2,7 +2,10 @@
 
 - (a) the cluster sweep: ``cluster_scan_plain`` (and the CPU wrapper)
   integer-equal to ``_cluster_scan_jit`` on random sorted evidence, one
-  row, one group and many one-row groups; per-cluster widths equal;
+  row, one group and many one-row groups; per-cluster widths equal; a
+  numpy model of the CUDA kernels (forced breaks from the packed int64
+  max-scan, the piece walk, the tile offsets) equal to both on every
+  sweep shape and on the inputs at the edges of the split;
 - (b) ``cluster_breakpoints`` against the JAX device path on the random
   evidence of tests/test_sv.py:337-397: pos, CI, CI95, SU/PE/SR,
   sample_support and imprecise equal, PRPOS/PREND within atol 2e-5;
@@ -55,7 +58,7 @@ COUNTS = ("dp", "ro", "ao", "rs", "as_", "rp", "ap", "gt", "ab")
 # ------------------------------------------------------------ (a) the sweep
 
 @pytest.mark.parametrize("shape", [s for s in sv_cases.SWEEP_SHAPES
-                                   if s != "genome"])
+                                   if not s.startswith("genome")])
 def test_cluster_scan_matches_jax(shape):
     cols = sv_cases.sweep_columns(shape, seed=3)
     want = np.asarray(jdevice._cluster_scan_jit(*cols))
@@ -71,6 +74,122 @@ def test_cluster_scan_matches_jax(shape):
     for lo_c, hi_c, k in ((1, 2, 1), (3, 4, 2)):
         lo, hi = sv_cluster.cluster_extents(plain, t[lo_c], t[hi_c], C)
         np.testing.assert_array_equal((hi - lo).numpy(), jx[:C, k])
+
+
+_M32 = 0xFFFFFFFF
+_SWEEP_CASES = (list(sv_cases.SWEEP_SHAPES)
+                + sorted(sv_cases.sweep_adversarial()))
+
+
+def _sweep_case(name):
+    if name in sv_cases.SWEEP_SHAPES:
+        return sv_cases.sweep_columns(name, seed=3)
+    return sv_cases.sweep_adversarial()[name]
+
+
+def _sweep_model(gid, s1, e1, lo2, hi2, tile=sv_cluster.TILE_ROWS):
+    """``csrc/sv_cluster.cu`` in numpy, tile by tile as its launches run:
+    (ids, forced-break flags, the census of what the input reached).
+
+    The packed keys (gid << 32) | (e1 ^ 0x80000000), their max per tile,
+    the exclusive max-scan over tiles and within each tile (identity
+    INT64_MIN) give each row the largest key before it; a row is a forced
+    break when that key's gid differs or s1 >= its end1 (P).  Pieces
+    between breaks are walked (all at once, by rank within the piece)
+    with the serial overlap test; each tile's count of cluster starts,
+    exclusively scanned, offsets the tile's inclusive scan of its flags."""
+    i64 = np.int64
+    g, s1, e1, lo2, hi2 = (np.asarray(c, i64) for c in (gid, s1, e1, lo2,
+                                                        hi2))
+    n = len(g)
+    key = (g << 32) | ((e1 & _M32) ^ 0x80000000)
+    none = np.iinfo(i64).min
+    nb = -(-n // tile)
+    padded = np.full(nb * tile, none, i64)
+    padded[:n] = key
+    tiles = padded.reshape(nb, tile)
+    carry = np.maximum.accumulate(np.r_[none, tiles.max(1)[:-1]])
+    within = np.maximum.accumulate(tiles, axis=1)
+    prev = np.maximum(carry[:, None], np.c_[np.full(nb, none), within[:, :-1]]
+                      ).reshape(-1)[:n]
+    P = (prev & _M32) - 2**31
+    brk = ((prev >> 32) != g) | (s1 >= P)
+    starts = np.flatnonzero(brk)
+    lens = np.diff(np.r_[starts, n])
+    new = brk.copy()
+    em, l2, h2 = e1[starts], lo2[starts], hi2[starts]
+    for r in range(1, int(lens.max())):
+        act = np.flatnonzero(lens > r)
+        i = starts[act] + r
+        ov = (s1[i] < em[act]) & (lo2[i] < h2[act]) & (hi2[i] > l2[act])
+        em[act] = np.where(ov, np.maximum(em[act], e1[i]), e1[i])
+        l2[act] = np.where(ov, np.minimum(l2[act], lo2[i]), lo2[i])
+        h2[act] = np.where(ov, np.maximum(h2[act], hi2[i]), hi2[i])
+        new[i] = ~ov
+    flags = np.zeros(nb * tile, i64)
+    flags[:n] = new
+    per_tile = flags.reshape(nb, tile)
+    offset = np.cumsum(per_tile.sum(1)) - per_tile.sum(1)
+    ids = (offset[:, None] + np.cumsum(per_tile, 1) - 1).reshape(-1)[:n]
+    same_gid = np.r_[False, g[1:] == g[:-1]]
+    census = {
+        "forced break at s1 == P": (brk & same_gid & (s1 == P)).any(),
+        "tested at s1 == P - 1": (~brk & (s1 == P - 1)).any(),
+        "piece of several clusters":
+            (np.add.reduceat(new, starts) > 1).any() if n else False,
+        "piece across a tile": ((starts // tile) != ((starts + lens - 1)
+                                                       // tile)).any(),
+        "single-row segment": (np.diff(np.flatnonzero(
+            np.r_[True, ~same_gid[1:], True])) == 1).any(),
+    }
+    return ids.astype(np.int32), brk, census
+
+
+@pytest.fixture(scope="module")
+def sweep_wants():
+    """Each sweep case's ids by the JAX scan and by the twin (computed
+    once: the twin takes seconds at 1,048,576 rows)."""
+    out = {}
+    for name in _SWEEP_CASES:
+        cols = _sweep_case(name)
+        out[name] = (np.asarray(jdevice._cluster_scan_jit(*cols)),
+                     sv_cluster.cluster_scan_plain(
+                         *(torch.from_numpy(c) for c in cols)).numpy())
+    return out
+
+
+@pytest.mark.parametrize("case", _SWEEP_CASES)
+def test_sweep_kernel_model(sweep_wants, case):
+    """A numpy model of the sweep kernel's launches (forced breaks from
+    the packed int64 max-scan, the piece walk, the tile offsets) equal to
+    the twin and to ``_cluster_scan_jit`` on every sweep shape and the
+    adversarial inputs, each of which reaches its edge."""
+    cols = _sweep_case(case)
+    ids, brk, census = _sweep_model(*cols)
+    jax_ids, plain = sweep_wants[case]
+    np.testing.assert_array_equal(plain, jax_ids)
+    np.testing.assert_array_equal(ids, jax_ids)
+    # every forced break starts a cluster in the reference
+    assert (np.r_[True, jax_ids[1:] != jax_ids[:-1]][brk]).all()
+    # small tiles put the carries and the pieces across tiles to work
+    for t in (7, 1):
+        small, _, c_small = _sweep_model(*cols, tile=t)
+        np.testing.assert_array_equal(small, jax_ids)
+    reach = {
+        "gid change after a huge end1": ["single-row segment"],
+        "end1 at both int32 limits": ["forced break at s1 == P",
+                                      "piece of several clusters"],
+        "s1 at P and one below": ["forced break at s1 == P",
+                                  "tested at s1 == P - 1",
+                                  "piece of several clusters"],
+        "single-row segments": ["single-row segment"],
+        "genome": ["piece across a tile"],
+        "genome-piles": ["piece across a tile",
+                         "piece of several clusters"],
+    }.get(case, [])
+    assert not [k for k in reach if not census[k]]
+    if (np.diff(np.r_[np.flatnonzero(brk), len(brk)]) > 1).any():
+        assert c_small["piece across a tile"]
 
 
 # ------------------------------------------- (b) cluster_breakpoints on CPU
