@@ -4,17 +4,21 @@
     python3 chip_smoke.py --against DIR [DIR ...]
 
 The second form runs only the device and build phases and against: the
-fm_search.cu and sv_cluster.cu of earlier versions (each DIR holds
-either or both, with a389f54's C interface or this checkout's; e.g.
-`git show a389f54:speedseq_tpu_torch/ops/csrc/fm_search.cu >
-build/earlier/fm_search.cu`) built beside this checkout's, every kernel's
-output equal to its twin's, and each kernel timed in turns against this
-checkout's: fm_smem on both FM indexes; fm_sa_walk on the 12 M-rank index
-and on the 2^28 + 1-rank index at uniform ranks and at the ranks
-find_seeds passes; the sweep at the sv phase's evidence and at the genome
-and genome-piles shapes (with the device time alone and per kernel of
-the versions without host syncs).  Then the nvidia-smi line and the last
-line.
+fm_search.cu, sv_cluster.cu and sw_banded.cu of earlier versions (each
+DIR holds any of them, fm_search.cu and sv_cluster.cu with a389f54's C
+interface or this checkout's, sw_banded.cu with this checkout's; e.g.
+`git show ae7b4b3:speedseq_tpu_torch/ops/csrc/sw_banded.cu >
+build/ae7b4b3/sw_banded.cu`) built beside this checkout's, every kernel's
+output equal to its twin's, and each kernel of a source some DIR holds
+timed in turns against this checkout's: fm_smem on both FM indexes;
+fm_sa_walk on the 12 M-rank index and on the 2^28 + 1-rank index at
+uniform ranks and at the ranks find_seeds passes; the sweep at the sv
+phase's evidence and at the genome and genome-piles shapes; sw_score at
+768 x 151 x 256, 768 x 150 x 256 (the main path's), 768 x 150 x 254 and
+32,768 x 151 x 256, sw_cigar at 16,384 x 151 x 256, with the SASS loops
+of both (with the device time alone and per kernel of the versions
+without host syncs).  Then the
+nvidia-smi line and the last line.
 
 Phases, each printing one JSON line:
 
@@ -22,7 +26,8 @@ Phases, each printing one JSON line:
   build    nvcc build of the kernels from the checkout (one nvcc per source,
            all started together), with ptxas reports
   kernels  each SW kernel against its plain PyTorch twin on the card at
-           production shapes (bit-equal), with kernel / twin / bound times
+           production shapes (bit-equal), with kernel (per wrapper call and
+           the device's alone) / twin / bound times
   parity   2,048 pairs through align_fastq on cpu and on cuda: the BAM
            triples must be record-equal
   kernels  (fm) the FM index of the align genome loaded with no SA cache
@@ -104,7 +109,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
-INT32_LANES_PER_SM = 64            # Hopper SM: 64 INT32 units per clock
+# int32 instructions a Hopper SM issues a clock: four schedulers, one warp
+# instruction each (the INT pipe's 64 lanes and the FMA pipe's 64, which
+# runs IMAD, together); work is counted in instructions, an operation fused
+# with its neighbour (multiply-add, add-then-max, 3-input max) once
+INT32_ISSUE_PER_SM = 128
 POPC_PER_SM = 16                   # popcounts per SM per clock (sm_90)
 GENOME = (2_500_000, 2_000_000, 1_500_000)   # contig lengths, 6 Mbp
 PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
@@ -162,16 +171,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
 def phase_kernels(args, clock_hz: float, n_sms: int):
     """Each kernel vs its twin at production shapes; returns per-kernel
     records (launches filled in after the align phase)."""
-    import numpy as np
     import torch
 
     from speedseq_tpu_torch.ops import sw_banded
     from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
 
     records = {}
-    int32_rate = n_sms * INT32_LANES_PER_SM * clock_hz
-    for name, n, opc in (("sw_cigar", 16384, sw_banded.OPS_PER_CELL_CIGAR),
-                         ("sw_score", 768, sw_banded.OPS_PER_CELL_SCORE)):
+    for name, n in (("sw_cigar", 16384), ("sw_score", 768)):
         q, ql, r = sw_edge_cases(n, 151, 256, seed=args.seed)
         qd, qld, rd = (torch.from_numpy(a).cuda() for a in (q, ql, r))
         kern = getattr(sw_banded, name)
@@ -185,28 +191,44 @@ def phase_kernels(args, clock_hz: float, n_sms: int):
                       else 0 for a, b in zip(got, want))
         check(max_err == 0, f"{name} disagrees with its twin ({max_err})")
         ms = cuda_ms(lambda: kern(qd, qld, rd), reps=20)
+        device_ms = cuda_ms(lambda: kern(qd, qld, rd), reps=20, queued=True)
         plain_ms = cuda_ms(lambda: plain(qd, qld, rd), reps=3, warmup=1)
-        rows = np.minimum(np.maximum(ql, 1), q.shape[1]).astype(np.int64)
-        ops = float(rows.sum()) * sw_banded.BAND * opc
-        n_out = 9 * n + 2 * 48 * n if name == "sw_cigar" else 5 * n
-        nbytes = 4.0 * (q.size + ql.size + r.size + n_out)
-        ops_ms = ops / int32_rate * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = _sw_bound(name, q, ql, r, clock_hz, n_sms)
         records[name] = {
             "name": name, "route": "cuda",
             "source": "speedseq_tpu_torch/ops/csrc/sw_banded.cu",
             "replaces": ("speedseq_tpu/ops/sw_pallas.py:329" if name ==
                          "sw_cigar" else "speedseq_tpu/ops/sw_pallas.py:390"),
             "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
+            "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
         }
         emit({"phase": "kernels", "kernel": name, "lanes": n, "Lq": 151,
-              "Lr": 256, "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
-              "int32_ops": ops, "bytes": nbytes, "bound_ms": max(ops_ms,
-                                                                  bytes_ms)})
+              "Lr": 256, "bit_equal": True, "ms": ms, "device_ms": device_ms,
+              "plain_ms": plain_ms, "int32_ops": bound["int32_ops"],
+              "bytes": bound["bytes"], "bound_ms": bound["bound_ms"]})
     return records
+
+
+def _sw_bound(kernel, q, ql, r, clock_hz, n_sms):
+    """The least time of a SW function on these (numpy) inputs: the rows
+    it runs x 128 band cells x its instructions a cell
+    (ops/sw_banded.py:OPS_PER_CELL_*), or its bytes (48 ops and lens a
+    cigar lane)."""
+    import numpy as np
+
+    from speedseq_tpu_torch.ops import sw_banded
+
+    n, Lq = q.shape
+    rows = np.minimum(np.maximum(ql, 1), Lq).astype(np.int64)
+    cigar = kernel == "sw_cigar"
+    opc = (sw_banded.OPS_PER_CELL_CIGAR if cigar else
+           sw_banded.OPS_PER_CELL_SCORE)
+    n_out = (9 + 2 * 48) * n if cigar else 5 * n
+    return _ops_bound(float(rows.sum()) * sw_banded.BAND * opc, 0,
+                      4.0 * (q.size + ql.size + r.size + n_out), clock_hz,
+                      n_sms)
 
 
 def phase_fm_kernels(work, fasta, genome, args, clock_hz: float,
@@ -454,14 +476,14 @@ def _c_signature(path, fn):
 
 def _earlier_libs(dirs):
     """{stem: [(name, lib, this_interface, ptxas lines)]}: the ctypes
-    libraries of the fm_search.cu and sv_cluster.cu each directory holds,
-    named by the directory, each built with the C interface its source
-    declares: this checkout's (its argument types are copied) or
-    a389f54's (the walk on occ, BWT and mark arrays, the sweep on gid
-    segment starts)."""
+    libraries of the fm_search.cu, sv_cluster.cu and sw_banded.cu each
+    directory holds, named by the directory, each built with the C
+    interface its source declares: this checkout's (its argument types are
+    copied) or a389f54's (the walk on occ, BWT and mark arrays, the sweep
+    on gid segment starts; sw_banded.cu's interface has not changed)."""
     import ctypes
 
-    from speedseq_tpu_torch.ops import fm_search, sv_cluster
+    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
     from speedseq_tpu_torch.ops.nvcc_build import build_library
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -470,20 +492,21 @@ def _earlier_libs(dirs):
                "ssq_fm_sa_walk": [vp, ci, vp, vp, vp, ci, ci, ci, vp, vp,
                                   vp, ci, vp, vp],
                "ssq_sv_cluster": [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]}
-    FNS = {"fm_search": ("ssq_fm_smem", "ssq_fm_sa_walk"),
-           "sv_cluster": ("ssq_sv_cluster",)}
-    out = {"fm_search": [], "sv_cluster": []}
+    MODS = {"fm_search": (fm_search, ("ssq_fm_smem", "ssq_fm_sa_walk")),
+            "sv_cluster": (sv_cluster, ("ssq_sv_cluster",)),
+            "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score"))}
+    out = {stem: [] for stem in MODS}
     for d in dirs:
-        for stem, mod in (("fm_search", fm_search), ("sv_cluster",
-                                                      sv_cluster)):
+        for stem, (mod, fns) in MODS.items():
             path = os.path.abspath(os.path.join(d, stem + ".cu"))
             if not os.path.exists(path):
                 continue
             here = os.path.join(os.path.dirname(mod.__file__), "csrc",
                                 stem + ".cu")
-            fns = FNS[stem]
             this = all(_c_signature(path, f) == _c_signature(here, f)
                        for f in fns)
+            check(this or stem != "sw_banded",
+                  f"{path}: not sw_banded.cu's C interface")
             info = {}
             lib = ctypes.CDLL(build_library(path, info, True))
             for f in fns:
@@ -494,6 +517,97 @@ def _earlier_libs(dirs):
                                   "ptxas", "").splitlines()
                                   if "registers" in l or "spill" in l]))
     return out
+
+
+def _sass_loops(so_path, pattern):
+    """{function: [loop, ...]} of each kernel in a built library whose
+    mangled name contains ``pattern``: every backward branch of its SASS
+    (``cuobjdump -sass``) whose body holds a shuffle (a row loop), with
+    its instructions counted by opcode, and a hash of its whole SASS."""
+    import collections
+    import hashlib
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                         text=True, timeout=120)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    funcs, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                      r"([^;]*);", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(3),
+                                m.group(4)))
+    out = {}
+    for fn, ins in funcs.items():
+        loops = []
+        for addr, op, args in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", args)
+            if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
+                body = [o.split(".")[0] for a, o, _ in ins
+                        if int(tgt.group(1), 16) <= a <= addr]
+                if "SHFL" not in body:
+                    continue
+                loops.append({"start": hex(int(tgt.group(1), 16)),
+                              "end": hex(addr), "instructions": len(body),
+                              "ops": dict(collections.Counter(
+                                  body).most_common())})
+        sass = "\n".join(op + args for _, op, args in ins)
+        out[fn] = {"instructions": len(ins), "loops": loops,
+                   "sha1": hashlib.sha1(sass.encode()).hexdigest()[:16]}
+    return out
+
+
+def _sw_runs(libs, case, clock_hz, n_sms, params=(1, 4, 6, 1)):
+    """(want, runs, bound) for one SW case: (kernel, lanes, Lq, Lr)
+    through each library's ssq_sw_score / ssq_sw_cigar, on sw_edge_cases
+    inputs."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
+
+    kernel, n, Lq, Lr = case
+    host = sw_edge_cases(n, Lq, Lr, seed=n + Lr)
+    bound = _sw_bound(kernel, *host, clock_hz, n_sms)
+    q, ql, r = (torch.from_numpy(a).cuda() for a in host)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "sw_score":
+        want = [t.int() for t in sw_banded.sw_score_plain(q, ql, r, params)]
+        out = torch.empty((5, n), dtype=torch.int32, device="cuda")
+
+        def run(lib):
+            rc = lib.ssq_sw_score(q.data_ptr(), ql.data_ptr(), r.data_ptr(),
+                                  n, Lq, Lr, *params, out.data_ptr(), n,
+                                  stream)
+            check(rc == 0, f"sw_score launch failed ({rc})")
+            return list(out)
+    else:
+        w = sw_banded.sw_cigar_plain(q, ql, r, params)
+        want = [t.int() for t in w[:7] + w[9:] + w[7:9]]
+        out = torch.empty((9, n), dtype=torch.int32, device="cuda")
+        ops, lens = (torch.empty((n, 48), dtype=torch.int32, device="cuda")
+                     for _ in range(2))
+        dirs = torch.empty((n, Lq, sw_banded.BAND), dtype=torch.int32,
+                           device="cuda")
+
+        def run(lib):
+            rc = lib.ssq_sw_cigar(q.data_ptr(), ql.data_ptr(), r.data_ptr(),
+                                  n, Lq, Lr, *params, 48, dirs.data_ptr(),
+                                  out.data_ptr(), n, ops.data_ptr(),
+                                  lens.data_ptr(), stream)
+            check(rc == 0, f"sw_cigar launch failed ({rc})")
+            return list(out) + [ops, lens]
+    return want, [(name, lambda l=lib: run(l))
+                  for name, lib, _, _ in libs], bound
 
 
 def _in_turns(kernel, case, runs, want, queued=()):
@@ -521,10 +635,10 @@ def _in_turns(kernel, case, runs, want, queued=()):
     return times
 
 
-def _kernel_split(fn, reps=5):
-    """Device microseconds per call of each kernel fn launches, from
-    torch.profiler (an empty dict where the profiler sees no device
-    time)."""
+def _kernel_split(fn, reps=5, pattern=r"sweep_\w+"):
+    """Device microseconds per call of each kernel fn launches whose name
+    matches ``pattern``, from torch.profiler (an empty dict where the
+    profiler sees no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -542,34 +656,84 @@ def _kernel_split(fn, reps=5):
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0)
-        name = re.search(r"sweep_\w+", ev.key)
+        name = re.search(pattern, ev.key)
         if us and name:
             out[name.group(0)] = out.get(name.group(0), 0.0) + us / reps
     return out
 
 
-def phase_against(work, fasta, genome, args, dirs):
-    """This checkout's fm_smem, fm_sa_walk and sv_cluster against earlier
-    versions' (``--against DIR ...``: the fm_search.cu and sv_cluster.cu
-    each directory holds, built with the C interface each declares), in
-    turns on this card: fm_smem on both FM indexes; fm_sa_walk on the
-    12 M-rank index, on the 2^28 + 1-rank index at uniform ranks and at
-    the ranks find_seeds passes; the sweep at the sv phase's evidence and
-    at the genome and genome-piles shapes, each as its wrapper runs it
-    (a389f54's with its host syncs), with the device time and a
-    per-kernel split of those on this checkout's interface.  Every output
-    equal to the twin's.  The kernels are called through their libraries
-    directly, so no wrapper counts those launches."""
-    import numpy as np
-    import torch
-
-    from speedseq_tpu_torch.ops import fm_search, sv_cluster
-    from speedseq_tpu_torch.utils import sv_cases
+def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
+    """This checkout's kernels against earlier versions' (``--against DIR
+    ...``: the fm_search.cu, sv_cluster.cu and sw_banded.cu each directory
+    holds, built with the C interface each declares), in turns on this
+    card, for each source some DIR holds: fm_smem on both FM indexes;
+    fm_sa_walk on the 12 M-rank index, on the 2^28 + 1-rank index at
+    uniform ranks and at the ranks find_seeds passes; the sweep at the sv
+    phase's evidence and at the genome and genome-piles shapes, each as its
+    wrapper runs it (a389f54's with its host syncs); sw_score at the mate
+    rescue's 768 lanes (151 x 256, the main path's 150 x 256, 150 x 254)
+    and at score_mode="sw"'s 32,768, sw_cigar at 16,384; with the device
+    time and a per-kernel split of those that make no host sync, and the
+    SASS loops of the SW kernels.  Every output equal to the twin's.  The kernels are
+    called through their libraries directly, so no wrapper counts those
+    launches."""
+    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
 
     earlier = _earlier_libs(dirs)
-    fm_libs = earlier["fm_search"] + [("this", fm_search._load(), True, [])]
-    sv_libs = earlier["sv_cluster"] + [("this", sv_cluster._load(), True,
-                                        [])]
+    if earlier["sw_banded"]:
+        _against_sw(earlier["sw_banded"], clock_hz, n_sms)
+    if earlier["fm_search"]:
+        _against_fm(work, fasta, genome, args, earlier["fm_search"])
+    if earlier["sv_cluster"]:
+        _against_sv(work, args, earlier["sv_cluster"])
+    emit({"phase": "against", "ptxas": {
+        "earlier": {stem: {name: lines for name, _, _, lines in libs}
+                    for stem, libs in earlier.items()},
+        "this": {m.__name__.rsplit(".", 1)[1]: [
+            l.strip() for l in m.BUILD_INFO.get("ptxas", "").splitlines()
+            if "registers" in l or "spill" in l]
+            for m in (fm_search, sv_cluster, sw_banded)}}})
+
+
+# sw_score at the mate rescue's 768 lanes: the smoke's 151 x 256, the main
+# path's 150 x 256 (a 254-column window padded with N, align/core.py:
+# _windows) and a width that is no multiple of 4 (150 x 254); at
+# score_mode="sw" phase 1's 32,768 lanes; sw_cigar at a chunk of 16,384
+SW_AGAINST = (("sw_score", 768, 151, 256), ("sw_score", 768, 150, 256),
+              ("sw_score", 768, 150, 254), ("sw_score", 32768, 151, 256),
+              ("sw_cigar", 16384, 151, 256))
+
+
+def _against_sw(earlier, clock_hz, n_sms):
+    """sw_score and sw_cigar of each library in turns at SW_AGAINST's
+    shapes, with the device time, the profiler's kernel time and the bound,
+    and the SASS loops of each library's SW kernels."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_banded
+
+    libs = earlier + [("this", sw_banded._load(), True, [])]
+    emit({"phase": "against", "kernel": "sw_banded", "sass": {
+        name: _sass_loops(lib._name, "sw_") for name, lib, _, _ in libs}})
+    for case in SW_AGAINST:
+        want, runs, bound = _sw_runs(libs, case, clock_hz, n_sms)
+        label = f"{case[1]} x {case[2]} x {case[3]}"
+        _in_turns(case[0], label, runs, want, queued=[n for n, _ in runs])
+        emit({"phase": "against", "kernel": case[0], "case": label,
+              "bound": bound, "profiler_us_per_call": {
+                  name: _kernel_split(run, pattern=r"sw_\w+_kernel(<\w+>)?")
+                  for name, run in runs}})
+        del want, runs
+        torch.cuda.empty_cache()
+
+
+def _against_fm(work, fasta, genome, args, earlier):
+    """fm_smem and fm_sa_walk of each library in turns (phase_against)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import fm_search
+
+    fm_libs = earlier + [("this", fm_search._load(), True, [])]
     fm_in = _fm_inputs(work, fasta, genome, args)
     stream = lambda: torch.cuda.current_stream().cuda_stream
     lens_d = torch.from_numpy(fm_in["lens"]).cuda()
@@ -627,6 +791,18 @@ def phase_against(work, fasta, genome, args, dirs):
     del big, big_lanes, cases
     torch.cuda.empty_cache()
 
+
+def _against_sv(work, args, earlier):
+    """The sweep of each library in turns (phase_against)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_cluster
+    from speedseq_tpu_torch.utils import sv_cases
+
+    sv_libs = earlier + [("this", sv_cluster._load(), True, [])]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
     def old_scan(lib, cols):     # a389f54's wrapper, its host syncs kept
         gid, s1, e1, lo2, hi2 = cols
         n = gid.shape[0]
@@ -674,20 +850,13 @@ def phase_against(work, fasta, genome, args, dirs):
               "profiler_us_per_call": {
                   name: _kernel_split(run) for name, run in runs
                   if name in synced}})
-    emit({"phase": "against", "ptxas": {
-        "earlier": {stem: {name: lines for name, _, _, lines in libs}
-                    for stem, libs in earlier.items()},
-        "this": {m.__name__.rsplit(".", 1)[1]: [
-            l.strip() for l in m.BUILD_INFO.get("ptxas", "").splitlines()
-            if "registers" in l or "spill" in l]
-            for m in (fm_search, sv_cluster)}}})
 
 
 def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
     """The least time of a kernel's work: the larger of its int32
-    operations over 64 lanes/SM/clock, its popcounts over 16/SM/clock and
+    operations over 128 lanes/SM/clock, its popcounts over 16/SM/clock and
     its bytes over the HBM rate."""
-    ms = {"operations": max(int_ops / (n_sms * INT32_LANES_PER_SM),
+    ms = {"operations": max(int_ops / (n_sms * INT32_ISSUE_PER_SM),
                             popc_ops / (n_sms * POPC_PER_SM)) / clock_hz * 1e3,
           "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     by = max(ms, key=ms.get)
@@ -1676,10 +1845,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--against", nargs="+", metavar="DIR",
-                    help="only time fm_search.cu and sv_cluster.cu against "
-                    "earlier versions' (each DIR holds either or both, "
-                    "with a389f54's C interface or this checkout's), in "
-                    "turns (phase against)")
+                    help="only time the fm_search.cu, sv_cluster.cu and "
+                    "sw_banded.cu that each DIR holds against this "
+                    "checkout's, in turns (phase against)")
     args = ap.parse_args()
 
     import torch
@@ -1724,7 +1892,8 @@ def main() -> int:
             genome = synth.make_genome(GENOME, seed=args.seed, n_del=64)
             fasta = os.path.join(work, "genome.fa")
             synth.write_fasta(fasta, genome)
-            phase_against(work, fasta, genome, args, args.against)
+            phase_against(work, fasta, genome, args, args.against,
+                          clock_mhz * 1e6, props.multi_processor_count)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(smi)

@@ -12,25 +12,54 @@
 // is (i-1, c+1), and the deletion state is a prefix max over the row capped
 // at MAX_DEL = 64 columns (six doubling steps, not a full prefix max).
 //
-// What bounds it on this card: integer operations.  Each band cell costs
-// ~30 essential int32 operations (substitution, vertical move, six
-// prefix-max steps, the best-cell key; ~42 with the traceback's direction
-// word), so a call does N x qlen x 128 x ~30 operations against
-// 132 SMs x 64 INT32 lanes x clock;
-// it reads ~(Lq + Lr) x 4 bytes and writes ~400 bytes per alignment, far
-// below the memory roofline.  (The direction scratch of the traceback
-// kernel, Lq x 128 x 4 bytes per alignment, is written once and read at a
-// few cells.)
+// What bounds it on this card: integer instructions.  Each band cell needs
+// at least 11 int32 instructions of Hopper's (the substitution lookup, the
+// vertical move, the capped window, H, the best-cell key; 23 with the
+// traceback's direction word; ops/sw_banded.py:OPS_PER_CELL_*), against
+// 132 SMs x 128 lanes x clock (four schedulers issue one warp instruction a
+// clock each); a call reads ~(Lq + Lr) x 4 bytes and writes ~400 bytes
+// per alignment, far below the memory roofline.  (The direction scratch of
+// the traceback kernel, Lq x 128 x 4 bytes per alignment, is written once
+// and read at a few cells.)
 //
-// What the design does about it: one warp per alignment with four adjacent
-// band columns per thread, so the whole row lives in registers; the
-// vertical move and every prefix-max step are warp shuffles (no shared
+// The traceback kernel (sw_cigar_kernel): one warp per alignment with four
+// adjacent band columns per thread, so the whole row lives in registers;
+// the vertical move and every prefix-max step are warp shuffles (no shared
 // memory, no block barriers); rows past the query length are skipped (they
 // can neither hold the best cell nor be read by the traceback).  The
 // traceback is serial, data-dependent control flow, so one thread of the
 // warp walks it over the direction scratch, jumping whole diagonal runs.
 // Narrower direction words, several alignments per warp and shared-memory
 // tiling are left for later work.
+//
+// The score kernel (sw_score_kernel) has the same layout and was redesigned
+// from the traceback kernel's row, which once served both (its score path:
+// 195 SASS instructions and 22 shuffles a row, 5 global loads; PERF.md §6):
+//   - no global loads in the row loop: the warp first stages its window as
+//     one 32-bit PRMT selector a column (rc * 0x1111 + 0x8880) and its
+//     query as one 8-byte table a row (sub(q[i], rc) as int8: rc = 0..3,
+//     4 for N or a code above 4, 5 for a negative code) in shared memory; a
+//     row reads its table (a broadcast) and a thread's next four columns
+//     come every four rows in one 16-byte load, so a cell's substitution
+//     score is one PRMT (sign-extending byte select).  Scores that do not
+//     fit int8 take the same kernel with the substitution computed by
+//     compares (LUT = false; 19 % slower);
+//   - the 64-column deletion window max in 11 shuffles on 2 dependent
+//     rounds, not 20 on 7, with the previous column's max folded in: lanes
+//     l-4 .. l-1 in one round of four shuffles, then lanes l-15 .. l-1 in
+//     one of three, and lane l-16's suffix maxima in four shuffles of 16;
+//   - per-row work that only one row needs left the loop: qlen < 1 is a
+//     case of its own (no `valid` selects), gbest is taken once from the
+//     last row, and the best-cell key is one multiply-add a cell against a
+//     row term, its column term subtracted after the loop.
+// That leaves 13 shuffles and ~87 SASS instructions a row.
+// What bounds it: at the mate-rescue launch (768 lanes, one warp a block)
+// the busiest of the 528 SM partitions runs two alignments, the average
+// 1.45, so no one-warp-per-alignment design passes 1.45 / 2 = 73 % of the
+// instruction bound there, and the row's dependent chain (the vertical
+// shuffle, two window rounds, F) sets its pace: ~345 clocks a row.  At
+// 32,768 lanes (score_mode="sw" phase 1) the instructions do: ~123 clocks
+// a warp-row, ~1.4 an instruction, as in the traceback kernel's row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,11 +79,9 @@ __device__ __forceinline__ int shfl_up_or(int v, int d, int lane, int fill) {
 
 // One warp per alignment.  Lane l owns band columns 4l .. 4l+3.
 // out rows (stride out_stride):
-//   CIGAR:  score, qbeg, qend, rbeg, rend, gscore, grend, n_ops, nm
-//   score:  score, qend, rend, gscore, grend
-template <bool CIGAR>
+//   score, qbeg, qend, rbeg, rend, gscore, grend, n_ops, nm
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-sw_banded_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
+sw_cigar_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
                  const int* __restrict__ ref, int n_lanes, int Lq, int Lr,
                  int p_match, int p_mis, int p_open, int p_ext, int max_ops,
                  int* __restrict__ dirs, int* __restrict__ out, long out_stride,
@@ -65,7 +92,7 @@ sw_banded_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
   const int qlen = qlens[n];
   const int* q = query + (long)n * Lq;
   const int* r = ref + (long)n * Lr;
-  int* drow = CIGAR ? dirs + (long)n * Lq * BAND : nullptr;
+  int* drow = dirs + (long)n * Lq * BAND;
   const int oe = p_open + p_ext;
   const int c0 = lane * 4;
 
@@ -143,25 +170,21 @@ sw_banded_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
       const int Hm = valid ? Hn : 0;
       V[t] = valid ? Vn[t] : NEG;
       H[t] = Hm;
-      if (CIGAR) {
-        const int fext = (pm[t] == pmp[t]) && c > 0;
-        const int rn = d == 1 ? min(runs[t] + 1, 127) : 0;
-        const int mr = d == 1 ? min(misrun[t] + mis[t], 127) : 0;
-        runs[t] = rn;
-        misrun[t] = mr;
-        const int pk = d | (vext[t] << 2) | (fext << 3) | (mis[t] << 4) |
-                       (rn << 5) | (mr << 12);
-        packed[t] = valid ? pk : 0;
-      }
+      const int fext = (pm[t] == pmp[t]) && c > 0;
+      const int rn = d == 1 ? min(runs[t] + 1, 127) : 0;
+      const int mr = d == 1 ? min(misrun[t] + mis[t], 127) : 0;
+      runs[t] = rn;
+      misrun[t] = mr;
+      const int pk = d | (vext[t] << 2) | (fext << 3) | (mis[t] << 4) |
+                     (rn << 5) | (mr << 12);
+      packed[t] = valid ? pk : 0;
       const int jg = i + c;
       const int cand = (Hm * (Lq + 1) + (Lq - i)) * Lr + (Lr - 1 - jg);
       best[t] = max(best[t], cand);
       if (i == qlen - 1) gbest[t] = Hm * Lr + (Lr - 1 - jg);
     }
-    if (CIGAR) {
-      *reinterpret_cast<int4*>(drow + (long)i * BAND + c0) =
-          make_int4(packed[0], packed[1], packed[2], packed[3]);
-    }
+    *reinterpret_cast<int4*>(drow + (long)i * BAND + c0) =
+        make_int4(packed[0], packed[1], packed[2], packed[3]);
   }
 
   int b = max(max(best[0], best[1]), max(best[2], best[3]));
@@ -180,16 +203,6 @@ sw_banded_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
   const int rend = Lr - 1 - rem % Lr + 1;
   const int gscore = g / Lr;
   const int grend = Lr - 1 - g % Lr + 1;
-  if (!CIGAR) {
-    if (lane == 0) {
-      out[0 * out_stride + n] = score;
-      out[1 * out_stride + n] = qend;
-      out[2 * out_stride + n] = rend;
-      out[3 * out_stride + n] = gscore;
-      out[4 * out_stride + n] = grend;
-    }
-    return;
-  }
   __syncwarp();  // the direction scratch written above is visible to lane 0
   if (lane != 0) return;
 
@@ -248,6 +261,181 @@ inline dim3 grid_for(int n) {
   return dim3((unsigned)((n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
 }
 
+// ---------------------------------------------------------------- score-only
+#define SCORE_WARPS 1  // 1, 2 and 4 measured: PERF.md §6
+#define MAX_LR 256
+// window columns a row may read: j = i + 4l + t < Lq + 127, and the next
+// four columns' load past the last row, i0 + 4 + 4l + 3 < 384
+#define WIN_COLS (MAX_LR + BAND)
+
+__device__ __forceinline__ int prmt(unsigned a, unsigned b, unsigned sel) {
+  unsigned r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return (int)r;
+}
+
+// max(v, shfl_up(v, d)): a lane below d gets its own v back, which already
+// lies inside the window it asks for
+__device__ __forceinline__ int max_up(int v, int d) {
+  return max(v, __shfl_up_sync(FULL_MASK, v, d));
+}
+
+struct ScoreConst {
+  int p_match, p_mis, p_ext, oe, K, dR;
+  int ec[4], fo[4];  // p_ext * c and p_open + p_ext * c of the thread's columns
+};
+
+// One band row of 4 columns a thread.  win[t]: column c0+t's selector (LUT)
+// or ref code; tab: the row's table (LUT) or query code in .x.
+template <bool LUT>
+__device__ __forceinline__ void score_row(int (&H)[4], int (&V)[4],
+                                          int (&bk)[4], int& R, uint2 tab,
+                                          const unsigned (&win)[4],
+                                          const ScoreConst& k, int lane) {
+  int sm = 0, smis = 0;
+  if (!LUT) {
+    const bool q_ok = (int)tab.x < 4;
+    sm = q_ok ? k.p_match : -1;
+    smis = q_ok ? -k.p_mis : -1;
+  }
+  int Hup = __shfl_down_sync(FULL_MASK, H[0], 1);
+  int Vup = __shfl_down_sync(FULL_MASK, V[0], 1);
+  if (lane == 31) { Hup = NEG; Vup = NEG; }
+  const int Hv[4] = {H[1], H[2], H[3], Hup};
+  const int Vv[4] = {V[1], V[2], V[3], Vup};
+  int Ht[4], x[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int rc = (int)win[t];
+    const int sub = LUT ? prmt(tab.x, tab.y, win[t])
+                        : (rc == (int)tab.x ? sm : (rc == 4 ? -1 : smis));
+    V[t] = max(Vv[t] - k.p_ext, Hv[t] - k.oe);
+    Ht[t] = max(max(H[t] + sub, V[t]), 0);
+    x[t] = Ht[t] + k.ec[t];
+  }
+  // deletion window: pm[c] = max x over [c-64, c-1], c = 4l + t
+  const int x01 = max(x[0], x[1]), x23 = max(x[2], x[3]);
+  const int m = max(x01, x23);
+  // lane l-16's suffix maxima (NEG below lane 16)
+  const int m16 = shfl_up_or(m, 16, lane, NEG);
+  const int s1 = shfl_up_or(max(x[1], x23), 16, lane, NEG);
+  const int s2 = shfl_up_or(x23, 16, lane, NEG);
+  const int s3 = shfl_up_or(x[3], 16, lane, NEG);
+  // B = max m over lanes l-4 .. l-1, then W over lanes l-15 .. l-1: two
+  // rounds of shuffles (NEG on lane 0)
+  const int B = max(max(shfl_up_or(m, 1, lane, NEG), shfl_up_or(m, 2, lane, NEG)),
+                    max(shfl_up_or(m, 3, lane, NEG), shfl_up_or(m, 4, lane, NEG)));
+  const int W = max(max_up(B, 4), max(__shfl_up_sync(FULL_MASK, B, 8),
+                                      __shfl_up_sync(FULL_MASK, B, 11)));
+  const int pm[4] = {max(W, m16), max(max(x[0], W), s1),
+                     max(max(x01, W), s2), max(max(max(x01, x[2]), W), s3)};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    H[t] = max(Ht[t], pm[t] - k.fo[t]);
+    bk[t] = max(bk[t], H[t] * k.K + R);
+  }
+  R -= k.dR;
+}
+
+// One warp per alignment, lane l owns band columns 4l .. 4l+3.  Outputs:
+// score, qend, rend, gscore, grend.
+template <bool LUT>
+__global__ void __launch_bounds__(SCORE_WARPS * 32)
+sw_score_kernel(const int* __restrict__ query, const int* __restrict__ qlens,
+                const int* __restrict__ ref, int n_lanes, int Lq, int Lr,
+                int p_match, int p_mis, int p_open, int p_ext,
+                int* __restrict__ out, long out_stride) {
+  __shared__ __align__(16) unsigned win_s[SCORE_WARPS][WIN_COLS];
+  __shared__ uint2 tab_s[SCORE_WARPS][MAX_LR + 1];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int n = blockIdx.x * SCORE_WARPS + w;
+  if (n >= n_lanes) return;  // warp-uniform
+  const int qlen = qlens[n];
+  // keys as the cigar kernel's: both >= 0, so C division matches floor
+  // division
+  int b = 0, g = 0;
+  if (qlen < 1) {
+    // a dead lane: row 0 with H = 0 (the cigar kernel's invalid row)
+    b = Lq > 0 ? Lq * Lr + Lr - 1 : 0;
+  } else {
+    unsigned* win = win_s[w];
+    uint2* tab = tab_s[w];
+    const int* q = query + (long)n * Lq;
+    const int* r = ref + (long)n * Lr;
+    for (int j = lane; j < WIN_COLS; j += 32) {
+      int rc = j < Lr ? r[j] : 4;  // columns past the window read as N
+      rc = rc < 0 ? 5 : min(rc, 4);  // a negative code mismatches every base
+      win[j] = LUT ? (unsigned)rc * 0x1111u + 0x8880u : (unsigned)rc;
+    }
+    for (int i = lane; i < Lq; i += 32) {
+      const int qc = q[i];
+      uint2 e = make_uint2((unsigned)qc, 0u);
+      if (LUT) {  // byte rc = sub(qc, rc); byte 4 (N) -1, 5 (negative) mismatch
+        e.x = 0;
+#pragma unroll
+        for (int rc = 0; rc < 4; ++rc) {
+          const int s = qc < 4 ? (rc == qc ? p_match : -p_mis) : -1;
+          e.x |= ((unsigned)s & 0xffu) << (8 * rc);
+        }
+        e.y = 0xffu | ((unsigned)(qc < 4 ? -p_mis : -1) & 0xffu) << 8;
+      }
+      tab[i] = e;
+    }
+    __syncwarp();
+
+    const int c0 = lane * 4;
+    ScoreConst k;
+    k.p_match = p_match; k.p_mis = p_mis; k.p_ext = p_ext;
+    k.oe = p_open + p_ext;
+    k.K = (Lq + 1) * Lr;
+    k.dR = Lr + 1;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      k.ec[t] = p_ext * (c0 + t);
+      k.fo[t] = p_open + k.ec[t];
+    }
+    // bk[t] = max over rows of H * K + R_i, R_i = K - 1 - i (Lr + 1): the
+    // cigar kernel's key (H (Lq+1) + Lq - i) Lr + Lr - 1 - (i + c) plus c
+    int H[4] = {0, 0, 0, 0}, V[4] = {NEG, NEG, NEG, NEG}, bk[4] = {0, 0, 0, 0};
+    int R = k.K - 1;
+    const int rows = min(qlen, Lq);
+    uint4 cur = *reinterpret_cast<const uint4*>(win + c0);
+    uint2 t0 = tab[0];
+    for (int i0 = 0; i0 < rows; i0 += 4) {
+      const uint4 nx = *reinterpret_cast<const uint4*>(win + i0 + 4 + c0);
+      const unsigned cat[8] = {cur.x, cur.y, cur.z, cur.w,
+                               nx.x, nx.y, nx.z, nx.w};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s > 0 && i0 + s >= rows) break;  // warp-uniform
+        const uint2 t1 = tab[i0 + s + 1];
+        const unsigned wv[4] = {cat[s], cat[s + 1], cat[s + 2], cat[s + 3]};
+        score_row<LUT>(H, V, bk, R, t0, wv, k, lane);
+        t0 = t1;
+      }
+      cur = nx;
+    }
+    b = max(max(bk[0] - c0, bk[1] - c0 - 1), max(bk[2] - c0 - 2,
+                                                 bk[3] - c0 - 3));
+    if (qlen <= Lq) {  // H is row qlen - 1
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        g = max(g, H[t] * Lr + (Lr - qlen - c0 - t));
+    }
+  }
+  b = __reduce_max_sync(FULL_MASK, b);
+  g = __reduce_max_sync(FULL_MASK, g);
+  if (lane == 0) {
+    const int M = (Lq + 1) * Lr;
+    const int rem = b % M;
+    out[0 * out_stride + n] = b / M;
+    out[1 * out_stride + n] = Lq - rem / Lr + 1;
+    out[2 * out_stride + n] = Lr - 1 - rem % Lr + 1;
+    out[3 * out_stride + n] = g / Lr;
+    out[4 * out_stride + n] = Lr - 1 - g % Lr + 1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -261,8 +449,8 @@ int ssq_sw_cigar(const void* query, const void* qlen, const void* ref, int n,
                  int max_ops, void* dirs, void* out, long out_stride, void* ops,
                  void* lens, void* stream) {
   if (n <= 0) return 0;
-  sw_banded_kernel<true><<<grid_for(n), WARPS_PER_BLOCK * 32, 0,
-                           (cudaStream_t)stream>>>(
+  sw_cigar_kernel<<<grid_for(n), WARPS_PER_BLOCK * 32, 0,
+                    (cudaStream_t)stream>>>(
       (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr, p_match,
       p_mis, p_open, p_ext, max_ops, (int*)dirs, (int*)out, out_stride,
       (int*)ops, (int*)lens);
@@ -274,11 +462,19 @@ int ssq_sw_score(const void* query, const void* qlen, const void* ref, int n,
                  int Lq, int Lr, int p_match, int p_mis, int p_open, int p_ext,
                  void* out, long out_stride, void* stream) {
   if (n <= 0) return 0;
-  sw_banded_kernel<false><<<grid_for(n), WARPS_PER_BLOCK * 32, 0,
-                            (cudaStream_t)stream>>>(
-      (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr, p_match,
-      p_mis, p_open, p_ext, 0, nullptr, (int*)out, out_stride, nullptr,
-      nullptr);
+  if (Lq < 0 || Lq > Lr || Lr > MAX_LR) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n + SCORE_WARPS - 1) / SCORE_WARPS));
+  // the int8 table holds p_match, -p_mis and -1
+  const bool lut = p_match >= -128 && p_match <= 127 && p_mis >= -127 &&
+                   p_mis <= 128;
+  if (lut)
+    sw_score_kernel<true><<<grid, SCORE_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr,
+        p_match, p_mis, p_open, p_ext, (int*)out, out_stride);
+  else
+    sw_score_kernel<false><<<grid, SCORE_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr,
+        p_match, p_mis, p_open, p_ext, (int*)out, out_stride);
   return (int)cudaGetLastError();
 }
 

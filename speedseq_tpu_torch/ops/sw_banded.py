@@ -17,7 +17,8 @@ interface on first use (keyed by a hash of the source, under
 ``ops/build/``) and loaded with ``ctypes``.
 
 DP contract (both): query (N, Lq) codes 0-3 with 4 = N/pad, qlen (N,),
-ref window (N, Lr) with Lq <= Lr <= 256.  Band state is indexed by
+ref window (N, Lr) codes 0-4 (a code above 4 also scores as N, a negative
+one as a mismatch against every base), with Lq <= Lr <= 256.  Band state is indexed by
 c = j - i in [0, 128); scoring (match, mismatch, open, extend), ambiguous
 bases score -1; the deletion state is a prefix max capped at 64 columns.
 Best cell = max score, then smallest i, then smallest j.  Packed direction
@@ -44,13 +45,20 @@ MAX_OPS_CAP = 64    # local op buffer of the traceback kernel
 CHUNK_LANES = 16384  # cigar lanes per launch: bounds the direction scratch
 # (Lq x 128 x 4 bytes per lane: 1.27 GB at Lq = 151)
 
-# essential int32 operations per band cell, the figure the roofline bound
-# in chip_smoke.py uses: substitution 5, vertical move 4, H 2, capped
-# deletion prefix max 12 (6 steps x shift + max), F/H 3, best-cell key 4
-# = 30; the traceback kernel adds direction code 4, extend bits 2, run
-# counters 4, packing 2 = 42 (3-input logic and multiply-add counted once)
-OPS_PER_CELL_SCORE = 30
-OPS_PER_CELL_CIGAR = 42
+# int32 instructions per band cell, the essential work that the roofline
+# bound in chip_smoke.py counts against Hopper's issue rate: an operation
+# that one instruction does with its neighbour counts once (multiply-add,
+# add-then-max, 3-input max, 3-input logic).  The score-only function:
+# substitution 1 (a byte-table lookup), vertical move 2 (H - o - e, then
+# add-then-max with V - e), Ht 2 (H + sub, a 3-input max with V and 0),
+# the capped deletion window 3 (a sliding maximum of 64 columns at 3 a
+# cell by van Herk / Gil-Werman, with x = Ht + e c folded into its two
+# running maxima as add-then-max), H 1 (add-then-max of pm - o - e c with
+# Ht), best-cell key 2 (a multiply-add, a max) = 11.  The traceback adds
+# its direction word: direction code 4, extend bits 2, run counters 4,
+# packing 2 = 12, so 23 a cell for the cigar function.
+OPS_PER_CELL_SCORE = 11
+OPS_PER_CELL_CIGAR = 23
 
 # launches of each kernel since the last reset (plain-twin calls not counted)
 LAUNCHES = {"sw_cigar": 0, "sw_score": 0}

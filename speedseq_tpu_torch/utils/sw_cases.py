@@ -83,3 +83,28 @@ def sw_edge_cases(n: int, Lq: int, Lr: int = 256, seed: int = 0):
         query[lane, :L] = q[:L]
         qlen[lane] = L
     return query, qlen, ref
+
+
+def sw_cap_cases(n: int, Lq: int, Lr: int = 256, seed: int = 0):
+    """Deletions at the deletion window's 64-column cap: lane k deletes
+    62 + k % 5 bases (62 .. 66) from the middle of an exact placement, so
+    that where the two halves outscore either alone (Lq = 151 with bwa
+    scoring) the deletion state F decides the best cell, and at 65 and 66
+    bases the cap forbids that one deletion.  Same layout as
+    ``sw_edge_cases``."""
+    rng = np.random.default_rng(seed)
+    query = np.full((n, Lq), 4, np.int32)
+    qlen = np.full(n, Lq, np.int32)
+    ref = rng.integers(0, 4, (n, Lr)).astype(np.int32)
+    cut = Lq // 2
+    for lane in range(n):
+        d = 62 + lane % 5
+        # the second half's band column off + d stays below 128, and its
+        # last base inside the window
+        hi = max(9, min(128 - d, Lr - Lq - d + 1))
+        off = int(rng.integers(8, hi))
+        r = ref[lane]
+        q = np.concatenate([r[off:off + cut], r[off + cut + d:]])[:Lq]
+        query[lane, :len(q)] = q
+        qlen[lane] = len(q)
+    return query, qlen, ref

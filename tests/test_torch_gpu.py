@@ -14,7 +14,7 @@ import torch
 
 from speedseq_tpu_torch.ops import sv_cluster, sw_banded
 from speedseq_tpu_torch.utils import sv_cases
-from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
+from speedseq_tpu_torch.utils.sw_cases import sw_cap_cases, sw_edge_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -51,6 +51,67 @@ def test_score_kernel_matches_twin(n, Lq):
     assert sw_banded.LAUNCHES["sw_score"] > before
     for a, b in zip(got, sw_banded.sw_score_plain(q, ql, r)):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("n,Lq,Lr,params", [
+    (768, 150, 256, (1, 4, 6, 1)), (768, 150, 254, (1, 4, 6, 1)),
+    (32768, 151, 256, (1, 4, 6, 1)), (768, 151, 256, (200, 300, 6, 1))],
+    ids=["rescue-150x256", "window-150x254", "phase1-32768",
+         "no-int8-table"])
+def test_score_kernel_matches_twin_at_path_shapes(n, Lq, Lr, params):
+    """The main path's rescue shape (a 254-column window padded to 256),
+    a window width that is no multiple of 4, score_mode="sw" phase 1's
+    lane count, and scores that do not fit the kernel's int8 table."""
+    _need_card()
+    q, ql, r = (torch.from_numpy(a).cuda()
+                for a in sw_edge_cases(n, Lq, Lr, seed=n + Lr))
+    got = sw_banded.sw_score(q, ql, r, params)
+    for a, b in zip(got, sw_banded.sw_score_plain(q, ql, r, params)):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("params", [(1, 4, 6, 1), (1, 4, 1, 1)])
+def test_score_kernel_cap_cases(params):
+    """Deletions of 62-66 bases, at the deletion window's cap."""
+    _need_card()
+    q, ql, r = (torch.from_numpy(a).cuda()
+                for a in sw_cap_cases(768, 151, 256, seed=3))
+    got = sw_banded.sw_score(q, ql, r, params)
+    for a, b in zip(got, sw_banded.sw_score_plain(q, ql, r, params)):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_score_kernel_odd_lengths():
+    """Lq = Lr = 256 (the table's last row, the window's right end), and
+    qlen above Lq, zero or negative, on random codes with N."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.integers(0, 5, (96, 256)).astype(np.int32))
+    r = torch.from_numpy(rng.integers(0, 5, (96, 256)).astype(np.int32))
+    r[1::3, :100] = q[1::3, 20:120]
+    ql = torch.from_numpy(rng.integers(-2, 260, 96).astype(np.int32))
+    got = sw_banded.sw_score(q.cuda(), ql.cuda(), r.cuda())
+    for a, b in zip(got, sw_banded.sw_score_plain(q, ql, r)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("params", [(1, 4, 6, 1), (200, 300, 6, 1)],
+                         ids=["int8-table", "compares"])
+def test_kernels_on_out_of_range_ref_codes(params):
+    """Ref codes below 0 (a mismatch against every base) and above 4 (N)
+    give both kernels the twins' answers."""
+    _need_card()
+    q, ql, r = sw_edge_cases(256, 151, 256, seed=17)
+    rng = np.random.default_rng(17)
+    odd = rng.random(r.shape) < 0.1
+    r[odd] = rng.choice(np.array([-7, -1, 5, 9], np.int32), int(odd.sum()))
+    q, ql, r = (torch.from_numpy(a) for a in (q, ql, r))
+    got = sw_banded.sw_score(q.cuda(), ql.cuda(), r.cuda(), params)
+    for a, b in zip(got, sw_banded.sw_score_plain(q, ql, r, params)):
+        assert torch.equal(a.cpu(), b)
+    got = sw_banded.sw_cigar(q.cuda(), ql.cuda(), r.cuda(), params)
+    for a, b in zip(got, sw_banded.sw_cigar_plain(q, ql, r, params)):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_cigar_kernel_chunks_lanes(monkeypatch):
