@@ -1,23 +1,27 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
-    python3 chip_smoke.py --against DIR [DIR ...]
+    python3 chip_smoke.py --against DIR [DIR ...] [--ablate DIR ...]
 
 The second form runs only the device and build phases and against: the
 fm_search.cu, sv_cluster.cu and sw_banded.cu of earlier versions (each
 DIR holds any of them, fm_search.cu and sv_cluster.cu with a389f54's C
-interface or this checkout's, sw_banded.cu with this checkout's; e.g.
-`git show ae7b4b3:speedseq_tpu_torch/ops/csrc/sw_banded.cu >
-build/ae7b4b3/sw_banded.cu`) built beside this checkout's, every kernel's
-output equal to its twin's, and each kernel of a source some DIR holds
-timed in turns against this checkout's: fm_smem on both FM indexes;
-fm_sa_walk on the 12 M-rank index and on the 2^28 + 1-rank index at
-uniform ranks and at the ranks find_seeds passes; the sweep at the sv
-phase's evidence and at the genome and genome-piles shapes; sw_score at
-768 x 151 x 256, 768 x 150 x 256 (the main path's), 768 x 150 x 254 and
-32,768 x 151 x 256, sw_cigar at 16,384 x 151 x 256, with the SASS loops
-of both (with the device time alone and per kernel of the versions
-without host syncs).  Then the
+interface or this checkout's, sw_banded.cu with c292ab1's or this
+checkout's; e.g. `git show c292ab1:speedseq_tpu_torch/ops/csrc/
+sw_banded.cu > build/c292ab1/sw_banded.cu`) built beside this
+checkout's, every kernel's output equal to its twin's (but those of the
+--ablate sources: a kernel with a part cut out, timed to measure that
+part's share), and each kernel of a source some DIR holds timed in turns
+against this checkout's: fm_smem on both FM indexes; fm_sa_walk on the
+12 M-rank index and on the 2^28 + 1-rank index at uniform ranks and at
+the ranks find_seeds passes; the sweep at the sv phase's evidence and at
+the genome and genome-piles shapes; sw_score at the main path's 768 x 151
+x 256, at 768 x 150 x 256, 768 x 150 x 254 and 32,768 x 151 x 256,
+sw_cigar at the main path's 16,384, 1,024 and 256 x 151 x 256, the same
+lane counts x 150 x 256 and on the inputs one batch of the align cell
+gives it, with the SASS loops of both (registers, shared bytes, and each
+row loop's instructions, shuffles, loads and stores) and the device time
+alone and per kernel of the versions without host syncs.  Then the
 nvidia-smi line and the last line.
 
 Phases, each printing one JSON line:
@@ -27,7 +31,9 @@ Phases, each printing one JSON line:
            all started together), with ptxas reports
   kernels  each SW kernel against its plain PyTorch twin on the card at
            production shapes (bit-equal), with kernel (per wrapper call and
-           the device's alone) / twin / bound times
+           the device's alone) / twin / bound times; sw_cigar also with its
+           device time at the main path's three launches (16,384, 1,024
+           and 256 x 151 x 256) and the device memory one call allocates
   parity   2,048 pairs through align_fastq on cpu and on cuda: the BAM
            triples must be record-equal
   kernels  (fm) the FM index of the align genome loaded with no SA cache
@@ -53,6 +59,9 @@ Phases, each printing one JSON line:
            launch counts, record counts, accuracy vs truth; then the
            same pairs through ``align --seed-mode fm`` (SMEM seeding),
            reported and held to the same bars
+  kernels  (align batch) sw_cigar on the inputs one batch of the align
+           cell gives each of its three launches (captured from
+           align_fastq), against its twin (bit-equal), device time
   realign  the align phase's BAM (65,536 pairs) through the port's CLI
            ``realign`` on cuda (batch 8,192, the reference's cache cleared
            first): wall, reads/s, extract / device-step / emit times, the
@@ -194,6 +203,16 @@ def phase_kernels(args, clock_hz: float, n_sms: int):
         device_ms = cuda_ms(lambda: kern(qd, qld, rd), reps=20, queued=True)
         plain_ms = cuda_ms(lambda: plain(qd, qld, rd), reps=3, warmup=1)
         bound = _sw_bound(name, q, ql, r, clock_hz, n_sms)
+        extra = {}
+        if name == "sw_cigar":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kern(qd, qld, rd)
+            torch.cuda.synchronize()
+            extra["max_memory_allocated_by_one_call"] = (
+                torch.cuda.max_memory_allocated() - base)
+            extra["device_ms_main_path"] = _cigar_main_path_ms(args.seed)
         records[name] = {
             "name": name, "route": "cuda",
             "source": "speedseq_tpu_torch/ops/csrc/sw_banded.cu",
@@ -202,13 +221,56 @@ def phase_kernels(args, clock_hz: float, n_sms: int):
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": None,
+            "bound_by": bound["bound_by"], "library_ms": None, **extra,
         }
         emit({"phase": "kernels", "kernel": name, "lanes": n, "Lq": 151,
               "Lr": 256, "bit_equal": True, "ms": ms, "device_ms": device_ms,
               "plain_ms": plain_ms, "int32_ops": bound["int32_ops"],
-              "bytes": bound["bytes"], "bound_ms": bound["bound_ms"]})
+              "bytes": bound["bytes"], "bound_ms": bound["bound_ms"],
+              **extra})
     return records
+
+
+def _cigar_main_path_ms(seed):
+    """sw_cigar's device time (queue filled first) at the main path's three
+    launches, on edge cases of its shape: {lanes: ms} at 16,384
+    (extend_candidates), 1,024 (_extend_xa) and 256 (the mate rescue's
+    extension) x 151 x 256."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
+
+    out = {}
+    for n in (16384, 1024, 256):
+        q, ql, r = (torch.from_numpy(a).cuda()
+                    for a in sw_edge_cases(n, 151, 256, seed=seed + n))
+        out[n] = cuda_ms(lambda: sw_banded.sw_cigar(q, ql, r), reps=20,
+                         queued=True)
+    return out
+
+
+def phase_cigar_batch(work, fasta, genome, args):
+    """sw_cigar on one align-cell batch's own inputs (each of its three
+    launches, captured), against its twin (bit-equal), device time."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_banded
+
+    rec = {"phase": "kernels", "kernel": "sw_cigar",
+           "case": "align cell batch", "launches": {}}
+    for n, (q, ql, r, params, max_ops) in sorted(
+            _capture_cigar_inputs(work, fasta, genome, args).items()):
+        got = sw_banded.sw_cigar(q, ql, r, params, max_ops)
+        want = sw_banded.sw_cigar_plain(q, ql, r, params, max_ops)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sw_cigar disagrees with its twin on the align cell's "
+              f"{n}-lane batch")
+        rec["launches"][n] = {
+            "Lq": q.shape[1], "Lr": r.shape[1], "bit_equal": True,
+            "device_ms": cuda_ms(lambda: sw_banded.sw_cigar(
+                q, ql, r, params, max_ops), reps=20, queued=True)}
+    emit(rec)
 
 
 def _sw_bound(kernel, q, ql, r, clock_hz, n_sms):
@@ -470,7 +532,8 @@ def _c_signature(path, fn):
     import re
 
     with open(path) as f:
-        m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", f.read())
+        m = re.search(r'(?:extern "C" )?\bint ' + fn + r"\(([^)]*)\)",
+                      f.read())
     return " ".join(m.group(1).split()) if m else None
 
 
@@ -478,20 +541,23 @@ def _earlier_libs(dirs):
     """{stem: [(name, lib, this_interface, ptxas lines)]}: the ctypes
     libraries of the fm_search.cu, sv_cluster.cu and sw_banded.cu each
     directory holds, named by the directory, each built with the C
-    interface its source declares: this checkout's (its argument types are
-    copied) or a389f54's (the walk on occ, BWT and mark arrays, the sweep
-    on gid segment starts; sw_banded.cu's interface has not changed)."""
+    interface its source declares, function by function: this checkout's
+    (its argument types are copied) or an earlier one (a389f54's walk on
+    occ, BWT and mark arrays and sweep on gid segment starts; c292ab1's
+    cigar kernel with its direction scratch ``dirs`` after max_ops)."""
     import ctypes
 
     from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
     from speedseq_tpu_torch.ops.nvcc_build import build_library
 
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    a389f54 = {"ssq_fm_smem": [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci, ci,
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    earlier = {"ssq_fm_smem": [vp, vp, ci, ci, vp, ci, vp, vp, vp, ci, ci,
                                ci, vp, vp, vp, vp, vp, vp],
                "ssq_fm_sa_walk": [vp, ci, vp, vp, vp, ci, ci, ci, vp, vp,
                                   vp, ci, vp, vp],
-               "ssq_sv_cluster": [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp]}
+               "ssq_sv_cluster": [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp],
+               "ssq_sw_cigar": [vp] * 3 + [ci] * 8 + [vp, vp, cl, vp, vp,
+                                                      vp]}
     MODS = {"fm_search": (fm_search, ("ssq_fm_smem", "ssq_fm_sa_walk")),
             "sv_cluster": (sv_cluster, ("ssq_sv_cluster",)),
             "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score"))}
@@ -503,19 +569,18 @@ def _earlier_libs(dirs):
                 continue
             here = os.path.join(os.path.dirname(mod.__file__), "csrc",
                                 stem + ".cu")
-            this = all(_c_signature(path, f) == _c_signature(here, f)
-                       for f in fns)
-            check(this or stem != "sw_banded",
-                  f"{path}: not sw_banded.cu's C interface")
+            same = {f: _c_signature(path, f) == _c_signature(here, f)
+                    for f in fns}
+            check(all(same[f] or f in earlier for f in fns),
+                  f"{path}: an unknown C interface")
             info = {}
             lib = ctypes.CDLL(build_library(path, info, True))
             for f in fns:
                 getattr(lib, f).argtypes = (
-                    getattr(mod._load(), f).argtypes if this else a389f54[f])
+                    getattr(mod._load(), f).argtypes if same[f]
+                    else earlier[f])
             out[stem].append((os.path.basename(os.path.normpath(d)), lib,
-                              this, [l.strip() for l in info.get(
-                                  "ptxas", "").splitlines()
-                                  if "registers" in l or "spill" in l]))
+                              all(same.values()), _ptxas_lines(info)))
     return out
 
 
@@ -566,19 +631,21 @@ def _sass_loops(so_path, pattern):
     return out
 
 
-def _sw_runs(libs, case, clock_hz, n_sms, params=(1, 4, 6, 1)):
-    """(want, runs, bound) for one SW case: (kernel, lanes, Lq, Lr)
-    through each library's ssq_sw_score / ssq_sw_cigar, on sw_edge_cases
-    inputs."""
+def _sw_runs(libs, kernel, host, clock_hz, n_sms, params=(1, 4, 6, 1),
+             max_ops=48):
+    """(want, runs, bound) for one SW case: ``host`` (query, qlen, ref)
+    numpy arrays or CUDA tensors through each library's ssq_sw_score /
+    ssq_sw_cigar (c292ab1's cigar kernel, with its direction scratch, where
+    the library declares that interface)."""
     import torch
 
     from speedseq_tpu_torch.ops import sw_banded
-    from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
 
-    kernel, n, Lq, Lr = case
-    host = sw_edge_cases(n, Lq, Lr, seed=n + Lr)
+    host = [a.cpu().numpy() if torch.is_tensor(a) else a for a in host]
     bound = _sw_bound(kernel, *host, clock_hz, n_sms)
-    q, ql, r = (torch.from_numpy(a).cuda() for a in host)
+    q, ql, r = (torch.from_numpy(a).int().cuda() for a in host)
+    n, Lq = q.shape
+    Lr = r.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
     if kernel == "sw_score":
         want = [t.int() for t in sw_banded.sw_score_plain(q, ql, r, params)]
@@ -591,38 +658,45 @@ def _sw_runs(libs, case, clock_hz, n_sms, params=(1, 4, 6, 1)):
             check(rc == 0, f"sw_score launch failed ({rc})")
             return list(out)
     else:
-        w = sw_banded.sw_cigar_plain(q, ql, r, params)
+        w = sw_banded.sw_cigar_plain(q, ql, r, params, max_ops)
         want = [t.int() for t in w[:7] + w[9:] + w[7:9]]
         out = torch.empty((9, n), dtype=torch.int32, device="cuda")
-        ops, lens = (torch.empty((n, 48), dtype=torch.int32, device="cuda")
-                     for _ in range(2))
-        dirs = torch.empty((n, Lq, sw_banded.BAND), dtype=torch.int32,
-                           device="cuda")
+        ops, lens = (torch.empty((n, max_ops), dtype=torch.int32,
+                                 device="cuda") for _ in range(2))
+        scratch = any(len(lib.ssq_sw_cigar.argtypes) == 17
+                      for _, lib, _, _ in libs)
+        dirs = (torch.empty((n, Lq, sw_banded.BAND), dtype=torch.int32,
+                            device="cuda") if scratch else None)
 
         def run(lib):
-            rc = lib.ssq_sw_cigar(q.data_ptr(), ql.data_ptr(), r.data_ptr(),
-                                  n, Lq, Lr, *params, 48, dirs.data_ptr(),
-                                  out.data_ptr(), n, ops.data_ptr(),
-                                  lens.data_ptr(), stream)
+            head = (q.data_ptr(), ql.data_ptr(), r.data_ptr(), n, Lq, Lr,
+                    *params, max_ops)
+            tail = (out.data_ptr(), n, ops.data_ptr(), lens.data_ptr(),
+                    stream)
+            if len(lib.ssq_sw_cigar.argtypes) == 17:   # c292ab1's
+                rc = lib.ssq_sw_cigar(*head, dirs.data_ptr(), *tail)
+            else:
+                rc = lib.ssq_sw_cigar(*head, *tail)
             check(rc == 0, f"sw_cigar launch failed ({rc})")
             return list(out) + [ops, lens]
     return want, [(name, lambda l=lib: run(l))
                   for name, lib, _, _ in libs], bound
 
 
-def _in_turns(kernel, case, runs, want, queued=()):
-    """Each run's output equal to ``want``, then the runs timed in turns
-    (the list, then the list reversed; CUDA events over 20 launches after
-    2 of warm-up), and the runs named in ``queued`` again with the queue
-    filled first (their device time); emits and returns {name: [ms,
-    ms]}."""
+def _in_turns(kernel, case, runs, want, queued=(), unchecked=()):
+    """Each run's output equal to ``want`` (but the runs named in
+    ``unchecked``: ablations), then the runs timed in turns (the list,
+    then the list reversed; CUDA events over 20 launches after 2 of
+    warm-up), and the runs named in ``queued`` again with the queue filled
+    first (their device time); emits and returns {name: [ms, ms]}."""
     import torch
 
     for name, run in runs:
         got = run()
         torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{kernel} of {name} disagrees with its twin ({case})")
+        check(name in unchecked or all(
+            torch.equal(a, b) for a, b in zip(got, want)),
+            f"{kernel} of {name} disagrees with its twin ({case})")
     times = {name: [] for name, _ in runs}
     device = {name: [] for name, _ in runs if name in queued}
     for name, run in runs + runs[::-1]:
@@ -670,18 +744,23 @@ def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
     fm_sa_walk on the 12 M-rank index, on the 2^28 + 1-rank index at
     uniform ranks and at the ranks find_seeds passes; the sweep at the sv
     phase's evidence and at the genome and genome-piles shapes, each as its
-    wrapper runs it (a389f54's with its host syncs); sw_score at the mate
-    rescue's 768 lanes (151 x 256, the main path's 150 x 256, 150 x 254)
-    and at score_mode="sw"'s 32,768, sw_cigar at 16,384; with the device
-    time and a per-kernel split of those that make no host sync, and the
-    SASS loops of the SW kernels.  Every output equal to the twin's.  The kernels are
-    called through their libraries directly, so no wrapper counts those
-    launches."""
+    wrapper runs it (a389f54's with its host syncs); the SW kernels at
+    SW_AGAINST's shapes and sw_cigar on one align-cell batch's own inputs;
+    with the device time and a per-kernel split of those that make no host
+    sync, and the SASS loops of the SW kernels.  Every output equal to the
+    twin's, but those of the ``--ablate DIR ...`` sources (sw_banded.cu
+    with a part cut out, timed beside the others to measure that part's
+    share).  The kernels are called through their libraries directly, so
+    no wrapper counts those launches."""
     from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
 
-    earlier = _earlier_libs(dirs)
+    earlier = _earlier_libs(dirs + (args.ablate or []))
+    ablated = {os.path.basename(os.path.normpath(d))
+               for d in args.ablate or []}
     if earlier["sw_banded"]:
-        _against_sw(earlier["sw_banded"], clock_hz, n_sms)
+        _against_sw(earlier["sw_banded"], clock_hz, n_sms,
+                    _capture_cigar_inputs(work, fasta, genome, args),
+                    ablated)
     if earlier["fm_search"]:
         _against_fm(work, fasta, genome, args, earlier["fm_search"])
     if earlier["sv_cluster"]:
@@ -689,37 +768,128 @@ def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
     emit({"phase": "against", "ptxas": {
         "earlier": {stem: {name: lines for name, _, _, lines in libs}
                     for stem, libs in earlier.items()},
-        "this": {m.__name__.rsplit(".", 1)[1]: [
-            l.strip() for l in m.BUILD_INFO.get("ptxas", "").splitlines()
-            if "registers" in l or "spill" in l]
-            for m in (fm_search, sv_cluster, sw_banded)}}})
+        "this": {m.__name__.rsplit(".", 1)[1]: _ptxas_lines(m.BUILD_INFO)
+                 for m in (fm_search, sv_cluster, sw_banded)}}})
 
 
-# sw_score at the mate rescue's 768 lanes: the smoke's 151 x 256, the main
-# path's 150 x 256 (a 254-column window padded with N, align/core.py:
-# _windows) and a width that is no multiple of 4 (150 x 254); at
-# score_mode="sw" phase 1's 32,768 lanes; sw_cigar at a chunk of 16,384
+def _ptxas_lines(info):
+    """The lines of a ptxas report that name a kernel, its registers and
+    its spills."""
+    return [l.strip() for l in info.get("ptxas", "").splitlines()
+            if "registers" in l or "spill" in l or "Compiling" in l]
+
+
+# The main path's SW launches are 151 wide (align/core.py pads the reads by
+# one) against a 256-column window (_windows pads 254 to 256).  sw_score at
+# the mate rescue's 768 lanes x 151 x 256, beside it a width of 150 (x 256)
+# and a window that is no multiple of 4 (150 x 254); at score_mode="sw"
+# phase 1's 32,768 lanes.  sw_cigar at the main path's three launches, each
+# 151 x 256: extend_candidates (16,384 lanes), _extend_xa (1,024), the mate
+# rescue's extension (256); beside them the same lane counts at a width of
+# 150.
 SW_AGAINST = (("sw_score", 768, 151, 256), ("sw_score", 768, 150, 256),
               ("sw_score", 768, 150, 254), ("sw_score", 32768, 151, 256),
-              ("sw_cigar", 16384, 151, 256))
+              ("sw_cigar", 16384, 151, 256), ("sw_cigar", 1024, 151, 256),
+              ("sw_cigar", 256, 151, 256), ("sw_cigar", 16384, 150, 256),
+              ("sw_cigar", 1024, 150, 256), ("sw_cigar", 256, 150, 256))
 
 
-def _against_sw(earlier, clock_hz, n_sms):
+def _capture_cigar_inputs(work, fasta, genome, args):
+    """The sw_cigar inputs of one batch of the align cell: its first BATCH
+    pairs through align_fastq on cuda with sw_banded.sw_cigar wrapped.
+    {lanes: (query, qlen, ref, params, max_ops)}, the first call of each
+    lane count (extend_candidates, _extend_xa, the mate rescue's
+    extension), copied on the card."""
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.utils import synth
+
+    f1, f2 = os.path.join(work, "a1.fq"), os.path.join(work, "a2.fq")
+    if not os.path.exists(f1):
+        synth.write_fastq_pair(f1, f2, synth.simulate(
+            genome, PAIRS, read_len=150, seed=args.seed, kill_frac=0.01))
+    b1, b2 = os.path.join(work, "b1.fq"), os.path.join(work, "b2.fq")
+    for src, dst in ((f1, b1), (f2, b2)):
+        with open(src) as fi, open(dst, "w") as fo:
+            for _ in range(4 * BATCH):
+                fo.write(fi.readline())
+    got = {}
+    kern = sw_banded.sw_cigar
+
+    def capture(query, qlen, ref, params=(1, 4, 6, 1), max_ops=48):
+        got.setdefault(query.shape[0], tuple(
+            t.clone() for t in (query, qlen, ref)) + (tuple(params),
+                                                       max_ops))
+        return kern(query, qlen, ref, params, max_ops)
+
+    sw_banded.sw_cigar = capture
+    try:
+        align_fastq(fasta, b1, b2, out_prefix=os.path.join(work, "capture"),
+                    config=AlignConfig(batch_size=BATCH), device="cuda")
+    finally:
+        sw_banded.sw_cigar = kern
+    check(len(got) == 3, f"sw_cigar lane counts of one batch: {list(got)}")
+    return got
+
+
+def _sw_row_loops(sass, ptxas):
+    """For each SW kernel of one library: its registers and static shared
+    bytes (ptxas) and, for each row loop (a SASS loop with shuffles), its
+    instructions, shuffles and global and shared loads and stores."""
+    import re
+
+    out, name = {}, None
+    for line in ptxas:
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        if name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {})["registers"] = int(regs.group(1))
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    for fn, info in sass.items():
+        rec = out.setdefault(fn, {})
+        rec["row_loops"] = [
+            {"instructions": lp["instructions"],
+             **{k: lp["ops"].get(k, 0) for k in (
+                 "SHFL", "LDG", "STG", "LDS", "STS", "VOTE")}}
+            for lp in info["loops"]]
+        rec["sha1"] = info["sha1"]
+    return out
+
+
+def _against_sw(earlier, clock_hz, n_sms, captured, unchecked=()):
     """sw_score and sw_cigar of each library in turns at SW_AGAINST's
-    shapes, with the device time, the profiler's kernel time and the bound,
-    and the SASS loops of each library's SW kernels."""
+    shapes and sw_cigar on ``captured`` (one align-cell batch's inputs),
+    with the device time, the profiler's kernel time and the bound, and
+    the SASS loops of each library's SW kernels (registers, shared bytes,
+    and each row loop's instructions, shuffles, loads and stores)."""
     import torch
 
     from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.utils.sw_cases import sw_edge_cases
 
-    libs = earlier + [("this", sw_banded._load(), True, [])]
-    emit({"phase": "against", "kernel": "sw_banded", "sass": {
-        name: _sass_loops(lib._name, "sw_") for name, lib, _, _ in libs}})
-    for case in SW_AGAINST:
-        want, runs, bound = _sw_runs(libs, case, clock_hz, n_sms)
-        label = f"{case[1]} x {case[2]} x {case[3]}"
-        _in_turns(case[0], label, runs, want, queued=[n for n, _ in runs])
-        emit({"phase": "against", "kernel": case[0], "case": label,
+    libs = earlier + [("this", sw_banded._load(), True,
+                       _ptxas_lines(sw_banded.BUILD_INFO))]
+    sass = {name: _sass_loops(lib._name, "sw_") for name, lib, _, _ in libs}
+    emit({"phase": "against", "kernel": "sw_banded", "sass": sass})
+    emit({"phase": "against", "kernel": "sw_banded", "row_loops": {
+        name: _sw_row_loops(sass[name], lines)
+        for name, _, _, lines in libs},
+        "sw_cigar_dynamic_smem_per_block": {
+            Lq: sw_banded.cigar_smem_bytes(Lq) for Lq in (150, 151, 256)}})
+    cases = [(k, f"{n} x {Lq} x {Lr}", sw_edge_cases(n, Lq, Lr, seed=n + Lr),
+              (1, 4, 6, 1), 48) for k, n, Lq, Lr in SW_AGAINST]
+    cases += [("sw_cigar", f"align cell batch, {n} x {c[0].shape[1]} x "
+               f"{c[2].shape[1]}", c[:3], c[3], c[4])
+              for n, c in sorted(captured.items(), reverse=True)]
+    for kernel, label, host, params, max_ops in cases:
+        want, runs, bound = _sw_runs(libs, kernel, host, clock_hz, n_sms,
+                                     params, max_ops)
+        _in_turns(kernel, label, runs, want, queued=[n for n, _ in runs],
+                  unchecked=unchecked)
+        emit({"phase": "against", "kernel": kernel, "case": label,
               "bound": bound, "profiler_us_per_call": {
                   name: _kernel_split(run, pattern=r"sw_\w+_kernel(<\w+>)?")
                   for name, run in runs}})
@@ -1848,6 +2018,10 @@ def main() -> int:
                     help="only time the fm_search.cu, sv_cluster.cu and "
                     "sw_banded.cu that each DIR holds against this "
                     "checkout's, in turns (phase against)")
+    ap.add_argument("--ablate", nargs="+", metavar="DIR",
+                    help="with --against or alone: more such sources, "
+                    "timed in turns but not held to the twins (a kernel "
+                    "with a part cut out)")
     args = ap.parse_args()
 
     import torch
@@ -1887,12 +2061,12 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    if args.against:
+    if args.against or args.ablate:
         try:
             genome = synth.make_genome(GENOME, seed=args.seed, n_del=64)
             fasta = os.path.join(work, "genome.fa")
             synth.write_fasta(fasta, genome)
-            phase_against(work, fasta, genome, args, args.against,
+            phase_against(work, fasta, genome, args, args.against or [],
                           clock_mhz * 1e6, props.multi_processor_count)
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -1913,6 +2087,7 @@ def main() -> int:
                                         props.multi_processor_count))
         walk_launches = phase_parity(work, fasta, genome, args, "fm")
         launches = phase_align(work, fasta, genome, args)
+        phase_cigar_batch(work, fasta, genome, args)
         fm_launches = phase_align(work, fasta, genome, args, "fm")
         launches["fm_smem"] = fm_launches["fm_smem"]
         launches["fm_sa_walk"] = walk_launches["fm_sa_walk"]

@@ -21,10 +21,16 @@ ref window (N, Lr) codes 0-4 (a code above 4 also scores as N, a negative
 one as a mismatch against every base), with Lq <= Lr <= 256.  Band state is indexed by
 c = j - i in [0, 128); scoring (match, mismatch, open, extend), ambiguous
 bases score -1; the deletion state is a prefix max capped at 64 columns.
-Best cell = max score, then smallest i, then smallest j.  Packed direction
-word per cell: bits 0-1 source (0 stop, 1 diag, 2 ins, 3 del), bit 2
-I-extend, bit 3 D-extend, bit 4 mismatch, bits 5-11 diagonal run length,
-bits 12-18 run mismatches (both saturating at 127).
+Best cell = max score, then smallest i, then smallest j.
+
+The twin's traceback walks a packed direction word per cell, the
+specification as the Pallas kernel writes it: bits 0-1 source (0 stop,
+1 diag, 2 ins, 3 del), bit 2 I-extend, bit 3 D-extend, bit 4 mismatch,
+bits 5-11 diagonal run length, bits 12-18 run mismatches (both saturating
+at 127).  The CUDA kernel keeps only bits 0-3, a 4-bit code a cell in
+shared memory, and its walk re-derives a diagonal cell's run and run
+mismatches from the codes and the staged query and window (the head note
+of csrc/sw_banded.cu).
 """
 
 from __future__ import annotations
@@ -41,9 +47,7 @@ from .nvcc_build import CSRC_DIR, build_library
 BAND = 128          # diagonal band width (c = j - i)
 MAX_DEL = 64        # deletion prefix-max window (6 doubling steps)
 NEG = -(10 ** 6)
-MAX_OPS_CAP = 64    # local op buffer of the traceback kernel
-CHUNK_LANES = 16384  # cigar lanes per launch: bounds the direction scratch
-# (Lq x 128 x 4 bytes per lane: 1.27 GB at Lq = 151)
+MAX_OPS_CAP = 64    # op buffer of the traceback kernel (two slots a lane)
 
 # int32 instructions per band cell, the essential work that the roofline
 # bound in chip_smoke.py counts against Hopper's issue rate: an operation
@@ -55,10 +59,14 @@ CHUNK_LANES = 16384  # cigar lanes per launch: bounds the direction scratch
 # cell by van Herk / Gil-Werman, with x = Ht + e c folded into its two
 # running maxima as add-then-max), H 1 (add-then-max of pm - o - e c with
 # Ht), best-cell key 2 (a multiply-add, a max) = 11.  The traceback adds
-# its direction word: direction code 4, extend bits 2, run counters 4,
-# packing 2 = 12, so 23 a cell for the cigar function.
+# a 4-bit direction code a cell: the move 5 (diag - H, V - H and -H, then
+# two 3-input logic ops whose signs are its two bits), the I-extend bit 1
+# (the sign of Hv - Vv - o - 1, a 3-input add), the D-extend bit 1 (pm[c]
+# == pm[c-1]), shifting it into the stored code 1 = 8, so 19 a cell for
+# the cigar function.  The run length and run mismatches of the twin's
+# word are not counted: the walk re-derives them at the cells it visits.
 OPS_PER_CELL_SCORE = 11
-OPS_PER_CELL_CIGAR = 23
+OPS_PER_CELL_CIGAR = 19
 
 # launches of each kernel since the last reset (plain-twin calls not counted)
 LAUNCHES = {"sw_cigar": 0, "sw_score": 0}
@@ -88,14 +96,22 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
             lib.ssq_sw_cigar.argtypes = [
-                vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, cl, vp,
-                vp, vp]
+                vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp, cl, vp, vp,
+                vp]
             lib.ssq_sw_cigar.restype = ci
+            lib.ssq_sw_cigar_smem.argtypes = [ci]
+            lib.ssq_sw_cigar_smem.restype = ci
             lib.ssq_sw_score.argtypes = [
                 vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, cl, vp]
             lib.ssq_sw_score.restype = ci
             _lib = lib
     return _lib
+
+
+def cigar_smem_bytes(Lq: int) -> int:
+    """Dynamic shared bytes a block of the cigar kernel takes at this Lq
+    (builds the library)."""
+    return _load().ssq_sw_cigar_smem(Lq)
 
 
 def _check_inputs(query, qlen, ref):
@@ -140,15 +156,11 @@ def sw_cigar(query, qlen, ref, params=(1, 4, 6, 1), max_ops: int = 48):
     out = torch.empty((9, N), dtype=torch.int32, device=dev)
     ops = torch.empty((N, max_ops), dtype=torch.int32, device=dev)
     lens = torch.empty((N, max_ops), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    chunk = max(1, min(N, CHUNK_LANES))
-    dirs = torch.empty((chunk, Lq, BAND), dtype=torch.int32, device=dev)
-    for n0 in range(0, N, chunk):
-        n = min(chunk, N - n0)
+    if N:
         rc = lib.ssq_sw_cigar(
-            q[n0].data_ptr(), ql[n0:].data_ptr(), r[n0].data_ptr(), n, Lq,
-            Lr, *params, max_ops, dirs.data_ptr(), out[0, n0:].data_ptr(), N,
-            ops[n0].data_ptr(), lens[n0].data_ptr(), stream)
+            q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, *params,
+            max_ops, out.data_ptr(), N, ops.data_ptr(), lens.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         _launch_check(rc, "sw_cigar")
         LAUNCHES["sw_cigar"] += 1
     score, qbeg, qend, rbeg, rend, gscore, grend, n_ops, nm = out

@@ -108,3 +108,55 @@ def sw_cap_cases(n: int, Lq: int, Lr: int = 256, seed: int = 0):
         query[lane, :len(q)] = q
         qlen[lane] = len(q)
     return query, qlen, ref
+
+
+LONG_KINDS = 5
+
+
+def sw_long_run_cases(n: int, Lq: int = 256, Lr: int = 256, seed: int = 0):
+    """Long diagonal chains, for the traceback's jumps (at most 127 rows a
+    step) and its NM: lane k is kind k % 5 of
+
+      an ungapped chain of 128, 129, 200 or Lq rows (Lq = Lr = 256: the
+      whole window) with two mismatches in its first rows (6 and 12), a
+      chain of 140 rows then a 2-bp insertion, 20 rows and a 4-bp deletion
+      then a chain of 160 rows with a mismatch at its row 8, N bases in
+      the query and in the window inside a 180-row chain, and a 150-row
+      read equal to its window but at row 5.
+
+    Same layout as ``sw_edge_cases``; the cases need Lq >= 200."""
+    rng = np.random.default_rng(seed)
+    query = np.full((n, Lq), 4, np.int32)
+    qlen = np.zeros(n, np.int32)
+    ref = rng.integers(0, 4, (n, Lr)).astype(np.int32)
+    rand = lambda m: rng.integers(0, 4, m).astype(np.int32)
+    flip = lambda b: (b + 1 + rng.integers(0, 3)) % 4
+    for lane in range(n):
+        kind = lane % LONG_KINDS
+        r = ref[lane]
+        if kind == 0:                       # one chain, mismatches at 6, 12
+            L = (128, 129, 200, Lq)[(lane // LONG_KINDS) % 4]
+            off = int(rng.integers(0, min(Lr - L, 40) + 1))
+            q = r[off:off + L].copy()
+            q[[6, 12]] = flip(q[[6, 12]])
+        elif kind == 1:                     # 140-row chain, 2-bp insertion
+            off = int(rng.integers(0, 20))
+            q = np.concatenate([r[off:off + 140], rand(2),
+                                r[off + 140:off + 190]])
+        elif kind == 2:                     # 4-bp deletion, 160-row chain
+            off = int(rng.integers(0, 20))
+            q = np.concatenate([r[off:off + 20], r[off + 24:off + 184]])
+            q[28] = flip(q[28])
+        elif kind == 3:                     # N bases inside a 180-row chain
+            off = int(rng.integers(0, 40))
+            r[off + 100] = 4
+            q = r[off:off + 180].copy()
+            q[[40, 130]] = 4
+        else:                               # 150 bp, one mismatch at row 5
+            off = int(rng.integers(0, 60))
+            q = r[off:off + 150].copy()
+            q[5] = flip(q[5])
+        q = np.asarray(q, np.int32)[:Lq]
+        query[lane, :len(q)] = q
+        qlen[lane] = len(q)
+    return query, qlen, ref

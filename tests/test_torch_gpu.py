@@ -14,7 +14,8 @@ import torch
 
 from speedseq_tpu_torch.ops import sv_cluster, sw_banded
 from speedseq_tpu_torch.utils import sv_cases
-from speedseq_tpu_torch.utils.sw_cases import sw_cap_cases, sw_edge_cases
+from speedseq_tpu_torch.utils.sw_cases import (sw_cap_cases, sw_edge_cases,
+                                               sw_long_run_cases)
 
 pytestmark = pytest.mark.gpu
 
@@ -25,16 +26,50 @@ def _need_card():
         pytest.skip("no CUDA device: the CUDA kernels run only on the card")
 
 
-@pytest.mark.parametrize("n,Lq,params", [
-    (4096, 151, (1, 4, 6, 1)), (1000, 112, (1, 4, 1, 1)), (3, 151, (1, 4, 6, 1))])
-def test_cigar_kernel_matches_twin(n, Lq, params):
+BWA, CHEAP_GAP, NO_INT8 = (1, 4, 6, 1), (1, 4, 1, 1), (200, 300, 6, 1)
+
+
+def _random_cases(n, Lq, Lr, seed):
+    """Random codes 0-4 with a third of the windows holding 200 bases of
+    their query (band column 20), and qlen from -2 to Lq + 3."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (n, Lq)).astype(np.int32)
+    r = rng.integers(0, 5, (n, Lr)).astype(np.int32)
+    r[1::3, 30:230] = q[1::3, 10:210]
+    return q, rng.integers(-2, Lq + 4, n).astype(np.int32), r
+
+
+@pytest.mark.parametrize("n,Lq,Lr,params,cases,seed", [
+    (4096, 151, 256, BWA, "edge", 4096),
+    (1000, 112, 256, CHEAP_GAP, "edge", 1000), (3, 151, 256, BWA, "edge", 3),
+    (16384, 151, 256, BWA, "edge", 16535), (1024, 151, 256, BWA, "edge", 1175),
+    (256, 151, 256, BWA, "edge", 407),
+    (16384, 150, 256, BWA, "edge", 16534), (1024, 150, 256, BWA, "edge", 1174),
+    (256, 150, 256, BWA, "edge", 406),
+    (320, 256, 256, BWA, "random", 576),
+    (320, 256, 256, CHEAP_GAP, "random", 576),
+    (320, 256, 256, BWA, "long", 576), (320, 256, 256, CHEAP_GAP, "long", 576),
+    (320, 256, 256, NO_INT8, "long", 576)],
+    ids=["4096", "cheap-gap", "3-lanes", "extend-16384x151", "xa-1024x151",
+         "rescue-256x151", "width-150-16384", "width-150-1024",
+         "width-150-256", "256x256", "256x256-cheap-gap", "long-runs",
+         "long-runs-cheap-gap", "long-runs-no-int8-table"])
+def test_cigar_kernel_matches_twin(n, Lq, Lr, params, cases, seed):
+    """All 11 outputs bit-equal to the twin: the edge cases, the main
+    path's three launches (extend_candidates, _extend_xa and the mate
+    rescue's extension, each 151 x 256: align/core.py pads the reads by
+    one) and the same lane counts at a width of 150, Lq = Lr = 256 (random
+    codes with N and qlen from -2 to 259, and chains longer than 127
+    rows), with bwa scoring, cheap gaps, and scores past the int8 table."""
     _need_card()
+    make = {"edge": sw_edge_cases, "random": _random_cases,
+            "long": sw_long_run_cases}[cases]
     q, ql, r = (torch.from_numpy(a).cuda()
-                for a in sw_edge_cases(n, Lq, 256, seed=n))
+                for a in make(n, Lq, Lr, seed=seed))
     before = sw_banded.LAUNCHES["sw_cigar"]
     got = sw_banded.sw_cigar(q, ql, r, params)
     torch.cuda.synchronize()
-    assert sw_banded.LAUNCHES["sw_cigar"] > before
+    assert sw_banded.LAUNCHES["sw_cigar"] == before + 1
     want = sw_banded.sw_cigar_plain(q, ql, r, params)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b.cpu())
@@ -114,18 +149,19 @@ def test_kernels_on_out_of_range_ref_codes(params):
         assert torch.equal(a.cpu(), b)
 
 
-def test_cigar_kernel_chunks_lanes(monkeypatch):
-    """Past CHUNK_LANES the launch is split; results do not change."""
+def test_cigar_kernel_one_launch_past_16384_lanes():
+    """20,000 lanes in one launch (the kernel keeps no scratch in device
+    memory, so nothing bounds the lanes of a launch), bit-equal to the
+    twin."""
     _need_card()
     q, ql, r = (torch.from_numpy(a).cuda()
-                for a in sw_edge_cases(300, 151, 256, seed=7))
-    whole = sw_banded.sw_cigar(q, ql, r)
-    monkeypatch.setattr(sw_banded, "CHUNK_LANES", 64)
+                for a in sw_edge_cases(20000, 151, 256, seed=7))
     before = sw_banded.LAUNCHES["sw_cigar"]
-    parts = sw_banded.sw_cigar(q, ql, r)
-    assert sw_banded.LAUNCHES["sw_cigar"] - before == 5
-    for a, b in zip(whole, parts):
-        assert torch.equal(a, b)
+    got = sw_banded.sw_cigar(q, ql, r)
+    torch.cuda.synchronize()
+    assert sw_banded.LAUNCHES["sw_cigar"] == before + 1
+    for a, b in zip(got, sw_banded.sw_cigar_plain(q, ql, r)):
+        assert torch.equal(a.cpu(), b.cpu())
 
 
 @pytest.mark.parametrize("seed", [0, 1])
