@@ -94,6 +94,16 @@ Phases, each printing one JSON line:
            counters, recall/precision against the planted events (>= 0.9
            each), genotypes and CN of the matched calls, and cpu/cuda
            parity of the records and readdepth calls over the same BAMs
+  multi    sharded and multi-process runs on the card: the mesh step on
+           one align-cell batch over [cuda:0] * 2 and over every visible
+           card against fused_align_packed (bit-equal, XA as a set),
+           coordinate_reshard on [cuda:0] * 2 against [cpu] * 2, sharded
+           genotyping (the var phase's 200 kb) and SVTyper (the sv phase's
+           calls) against unsharded, then two worker processes sharing
+           cuda:0 over gloo for align (the first 32,768 pairs, merged and
+           resharded), var and somatic (their first 200 kb) and sv (its
+           BAM as two samples), each equal to one process; every wall,
+           one process's and two's, beside the card's name and power limit
   kernels  then the sv_cluster sweep kernels against their twin (bit-equal)
            at the sv phase's evidence, at 1,048,576 rows in 16 groups and
            at 1,048,576 rows in 256 skewed groups with piles (genome-piles)
@@ -1886,6 +1896,266 @@ def phase_sv(work, args):
     return launches, _sweep_cols(sv)
 
 
+MULTI_PAIRS = 32_768                # multi: 4 align-cell batches, 2 waves
+MULTI_INSERT = "320,50,520,120"    # -I of the two-process align runs
+
+
+def _workers(args, what):
+    """Two worker processes of ``python -m speedseq_tpu_torch.parallel.
+    multihost`` (``args`` with "{pid}" for the process id) on cuda:0,
+    exchanging over gloo; their wall and their stdout lines.  A worker
+    that fails or outlives its limit fails the phase (both are killed)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, SSQ_COORDINATOR=f"localhost:{port}",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "speedseq_tpu_torch.parallel.multihost"]
+        + [a.replace("{pid}", str(p)) for a in args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    check(outs is not None, f"{what}: a worker ran past 300 s")
+    for p, (_, err) in zip(procs, outs):
+        check(p.returncode == 0,
+              f"{what}: worker exit {p.returncode}: {err[-2000:]}")
+    lines = [o.strip().splitlines() for o, _ in outs]
+    check(all(any("CollectiveExchange on cuda:0" in l for l in ls)
+              for ls in lines), f"{what}: a worker was not on gloo, cuda:0")
+    return wall, lines
+
+
+def _worker_launches(lines):
+    """Each worker's kernel launch counts, from its worker line."""
+    out = []
+    for ls in lines:
+        tail = [l for l in ls if "launches {" in l]
+        out.append(json.loads(tail[-1].split("launches ", 1)[1])
+                   if tail else {})
+    return out
+
+
+def _vcf_text(path):
+    import gzip
+
+    with gzip.open(path, "rt") as fh:
+        return fh.read()
+
+
+def phase_multi(work, args, smi):
+    """Sharded and multi-process runs on the one card: the mesh step on
+    [cuda:0] * 2 and on every visible card, coordinate_reshard, sharded
+    genotyping and SVTyper, and two worker processes sharing cuda:0 over
+    gloo for align (merged and resharded), var, somatic and sv, each held
+    to the single-device, single-process result."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.align import core, pipeline
+    from speedseq_tpu_torch.formats import fastq
+    from speedseq_tpu_torch.ops import sw_banded
+    from speedseq_tpu_torch.parallel import mesh as pmesh
+    from speedseq_tpu_torch.sv import cluster as svcluster
+    from speedseq_tpu_torch.sv.engine import SVConfig, SVSample, run_sv
+    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
+    from speedseq_tpu_torch.sv.svtyper import SVGenotyper
+    from speedseq_tpu_torch.var import device as vdevice
+    from speedseq_tpu_torch.var.engine import run_var
+
+    walls, checks = {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # -- the mesh step on one align-cell batch
+    fasta = os.path.join(work, "genome.fa")
+    f1, f2 = os.path.join(work, "a1.fq"), os.path.join(work, "a2.fq")
+    _, fm, kidx = pipeline._load_fm(fasta, torch.device("cuda"))
+    b1, b2 = next(iter(fastq.iter_batches(f1, batch_size=BATCH, max_len=151,
+                                          paired_with=f2)))
+    step_in = [torch.from_numpy(a).cuda() for a in (
+        b1.seq, b1.length.astype(np.int32), b2.seq,
+        b2.length.astype(np.int32))]
+    one = timed("step_single", lambda: core.fused_align_packed(
+        fm, *step_in, kidx=kidx))
+    one_aligned = int(((one[0][:, 3, :, 0] & 0xFFFF) >= 30).sum())
+    xa = lambda m: {(e,) + tuple(m[e, :, j].tolist())
+                    for e in range(m.shape[0])
+                    for j in torch.nonzero(m[e, 0] >= 0).flatten().tolist()}
+    sw_banded.reset_launches()
+    for name, devs in (("mesh_cuda0x2", ["cuda:0"] * 2),
+                       ("mesh_all_cards", None)):
+        mesh = pmesh.make_mesh(devices=devs)
+        got = timed(name, lambda: pmesh.distributed_fused_step(
+            mesh, fm, *step_in, kidx=kidx))
+        checks[name] = (all(torch.equal(one[k], got[k]) for k in (0, 1, 2, 4))
+                        and int(one[3]) == int(got[3])
+                        and xa(one[5].cpu()) == xa(got[5].cpu())
+                        and got[7] == one_aligned)
+    mesh_launches = dict(sw_banded.LAUNCHES)
+    check(all(v > 0 for v in mesh_launches.values()),
+          f"a SW kernel was not launched by the mesh step: {mesh_launches}")
+
+    # -- coordinate_reshard: two shards of cuda:0 against two of the CPU
+    rng = np.random.default_rng(args.seed + 500)
+    n_local, span = 1 << 16, 1 << 40
+    keys = rng.integers(0, span, (2, n_local)).astype(np.int64)
+    keys[:, -1000:] = int(pmesh.KEY_SENTINEL)
+    rows = rng.integers(0, 1 << 30, (2, n_local, 3)).astype(np.int64)
+    bounds = np.asarray([span // 3], np.int64)
+    for cap in (n_local, n_local // 4):
+        want = pmesh.coordinate_reshard(
+            pmesh.make_mesh(devices=["cpu"] * 2), keys, rows, bounds, cap)
+        got = timed(f"reshard_cap{cap}", lambda: pmesh.coordinate_reshard(
+            pmesh.make_mesh(devices=["cuda:0"] * 2), keys, rows, bounds,
+            cap))
+        checks[f"reshard_cap{cap}"] = all(
+            torch.equal(a, b.cpu()) for a, b in zip(want, got))
+    checks["reshard_dropped"] = bool(got[3].sum() > 0)
+
+    # -- sharded genotyping on the var phase's parity region
+    var_fa, var_bam = os.path.join(work, "var.fa"), os.path.join(
+        work, "var_aln.bam")
+    var_bed = os.path.join(work, "first.bed")
+    seen = []
+    real = vdevice.genotype_sites
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    vdevice.genotype_sites = spy
+    try:
+        run_var(var_fa, [var_bam], os.path.join(work, "multi_gt.vcf.gz"),
+                windows_bed=var_bed, device="cuda")
+    finally:
+        vdevice.genotype_sites = real
+    check(len(seen) > 0, "no genotyping call to shard")
+    gt_ok, sites = True, 0
+    mesh2 = pmesh.make_mesh(devices=["cuda:0"] * 2)
+    for a, k in seen:
+        k = {key: v for key, v in k.items() if key not in ("device",
+                                                           "mesh")}
+        u = real(*a, device="cuda", **k)
+        sh = timed("genotype_sharded", lambda: real(*a, mesh=mesh2, **k))
+        sites += len(u.qual)
+        gt_ok &= all(np.array_equal(x, y) for x, y in zip(u[:-1], sh[:-1]))
+    checks["genotype_sharded"] = gt_ok
+
+    # -- sharded SVTyper on the sv phase's calls
+    aln = os.path.join(work, "sv_aln")
+    sv_bam = aln + ".bam"
+    stats = InsertStats.from_bam(sv_bam)
+    ev = collect_evidence([aln + ".discordants.bam"],
+                          [aln + ".splitters.bam"], [stats],
+                          ref_names=["chrA", "chrB"])
+    calls = svcluster.cluster_breakpoints(ev, device="cuda")
+    g = SVGenotyper(sv_bam, stats, device="cuda")
+    g_one = timed("svtyper_single", lambda: g.genotype_all(calls))
+    g_two = timed("svtyper_sharded", lambda: g.genotype_all(calls,
+                                                            mesh=mesh2))
+    checks["svtyper_sharded"] = g_one == g_two and len(calls) > 0
+    g.close()
+
+    # -- two processes on cuda:0: align, merged and resharded
+    m1, m2 = (os.path.join(work, f"m{k}.fq") for k in (1, 2))
+    for src, dst in ((f1, m1), (f2, m2)):
+        with open(src) as fi, open(dst, "w") as fo:
+            for _ in range(4 * MULTI_PAIRS):
+                fo.write(fi.readline())
+    ins = tuple(float(x) for x in MULTI_INSERT.split(","))
+    cfg = pipeline.AlignConfig(batch_size=BATCH, insert_override=(
+        ins[0], ins[1], int(ins[2]), int(ins[3])))
+    single = timed("align_single", lambda: pipeline.align_fastq(
+        fasta, m1, m2, out_prefix=os.path.join(work, "m_single"),
+        config=cfg, device="cuda"))
+    worker_launches = {}
+    for mode in ("merged", "resharded"):
+        pre = os.path.join(work, f"m_{mode}")
+        walls[f"align_2proc_{mode}"], lines = _workers(
+            ["align", fasta, m1, m2, pre, "2", "{pid}",
+             os.path.join(work, f"ex_{mode}"), str(BATCH), MULTI_INSERT,
+             f"smoke_{mode}"] + (["reshard"] if mode == "resharded" else []),
+            f"align {mode}")
+        outs = json.loads(lines[0][-1])
+        checks[f"align_2proc_{mode}"] = all(
+            read_records(single[k])[1] == read_records(outs[k])[1]
+            and read_records(single[k])[0].text
+            == read_records(outs[k])[0].text
+            for k in ("bam", "splitters.bam", "discordants.bam"))
+        worker_launches[f"align_{mode}"] = _worker_launches(lines)
+        check(all(w.get("sw_cigar", 0) > 0 and w.get("sw_score", 0) > 0
+                  for w in worker_launches[f"align_{mode}"]),
+              f"align {mode}: a worker launched no SW kernel")
+
+    # -- var and somatic over the phases' first 200 kb
+    out = os.path.join(work, "m_var.vcf.gz")
+    walls["var_2proc"], _ = _workers(
+        ["var", var_fa, var_bam, out, "2", "{pid}",
+         os.path.join(work, "ex_var"), "smoke_var", "--bed", var_bed], "var")
+    checks["var_2proc"] = (_vcf_text(out) == _vcf_text(
+        os.path.join(work, "par_cuda.vcf.gz")))
+    som_fa = os.path.join(work, "som.fa")
+    som_bams = [os.path.join(work, n + ".bam") for n in ("normal", "tumor")]
+    out = os.path.join(work, "m_som.vcf.gz")
+    walls["somatic_2proc"], _ = _workers(
+        ["var", som_fa, ",".join(som_bams), out, "2", "{pid}",
+         os.path.join(work, "ex_som"), "smoke_som", "somatic", "--bed",
+         os.path.join(work, "som_first.bed")], "somatic")
+    with open(out[:-7] + ".ped") as fa_, open(os.path.join(
+            work, "som_cuda.ped")) as fb_:
+        same_ped = fa_.read() == fb_.read()
+    checks["somatic_2proc"] = same_ped and (_vcf_text(out) == _vcf_text(
+        os.path.join(work, "som_cuda.vcf.gz")))
+
+    # -- sv with the sv phase's BAM as two samples
+    samples = [SVSample(n, sv_bam, aln + ".splitters.bam",
+                        aln + ".discordants.bam") for n in ("S1", "S2")]
+    sv_one = os.path.join(work, "m_sv_single.sv.vcf.gz")
+    timed("sv_single_2samples", lambda: run_sv(samples, sv_one, SVConfig(),
+                                               device="cuda"))
+    sv_two = os.path.join(work, "m_sv.sv.vcf.gz")
+    walls["sv_2proc_2samples"], lines = _workers(
+        ["sv", sv_two, "2", "{pid}", os.path.join(work, "ex_sv"), "smoke_sv"]
+        + [f"{s.name}:{s.full}:{s.splitters}:{s.discordants}"
+           for s in samples], "sv")
+    worker_launches["sv"] = _worker_launches(lines)
+    checks["sv_2proc"] = _vcf_text(sv_one) == _vcf_text(sv_two)
+    check(all(w.get("sv_cluster", 0) > 0 for w in worker_launches["sv"]),
+          "sv: a worker launched no sv_cluster kernel")
+
+    emit({"phase": "multi", "phase_s": time.perf_counter() - t_phase,
+          "nvidia_smi": smi,
+          "cards_visible": torch.cuda.device_count(), "batch": BATCH,
+          "align_pairs": MULTI_PAIRS, "genotype_sites": sites,
+          "sv_calls": len(calls), "walls_s": walls, "checks": checks,
+          "mesh_launches": mesh_launches,
+          "worker_launches": worker_launches})
+    for name, ok in checks.items():
+        check(ok, f"multi: {name} differs from the single-device run")
+
+
 def _sweep_pieces(cols):
     """Lengths of the pieces between the sweep's forced breaks (a gid
     change, or start1 at or past the largest end1 of the gid's earlier
@@ -2095,6 +2365,7 @@ def main() -> int:
         phase_var(work, args)
         phase_somatic(work, args)
         sv_launches, sv_cols = phase_sv(work, args)
+        phase_multi(work, args, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records["sv_cluster"] = phase_sv_kernel(sv_cols, args, clock_mhz * 1e6)

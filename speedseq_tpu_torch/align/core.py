@@ -568,13 +568,20 @@ def fused_align_leaves(fm: FMIndex, reads1, lengths1, reads2=None,
     ([cigar16 | xa_cig]); the full cigar and the stats stay separate."""
     meta, cig16, cigfull, ovf, stats, xam, xac = fused_align_packed(
         fm, reads1, lengths1, reads2, lengths2, distro=distro, **kw)
+    return pack_leaves(meta, cig16, ovf, xam, xac) + (cigfull, stats)
+
+
+def pack_leaves(meta, cig16, ovf, xam, xac):
+    """The two fetched leaves (int32, int16) of fused_align_leaves, from
+    fused_align_packed's outputs (those of parallel.mesh.
+    distributed_fused_step too)."""
     E, _, B, S = meta.shape
     C = xam.shape[2]
     hdr = torch.tensor([E, B, S, C], dtype=i32, device=meta.device)
     i32_leaf = torch.cat(
         [hdr, meta.reshape(-1), xam.reshape(-1), ovf.reshape(1)])
     i16_leaf = torch.cat([cig16.reshape(-1), xac.reshape(-1)])
-    return i32_leaf, i16_leaf, cigfull, stats
+    return i32_leaf, i16_leaf
 
 
 def unpack_leaves(i32_leaf: np.ndarray, i16_leaf: np.ndarray):

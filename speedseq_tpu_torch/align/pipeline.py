@@ -11,6 +11,12 @@ Three stages overlap: the main thread dispatches batch i+1's device step
 (CUDA launches return at once) while a 1-thread fetch pool waits on batch
 i's CUDA event (its device-to-host copy into pinned host memory) and a
 1-thread drain pool runs the ordered host epilogue.
+
+With a mesh (``device=`` a parallel.mesh.Mesh, or on ``cuda`` when more
+than one card is visible and divides the batch), each batch's step runs
+sharded over the mesh (parallel.mesh.distributed_fused_step); the records
+do not change.  ``SSQ_TORCH_TRACE=<dir>`` records the whole run with
+``torch.profiler`` and writes a Chrome trace into ``<dir>``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ..index.kmer import kmer_arrays_np, kmer_index_from_arrays
 from ..utils.metrics import metrics
 from ..utils.prefetch import prefetch
 from .core import (DEFAULT_DISTRO, device_estimate_distro, fused_align_leaves,
-                   unpack_fused, unpack_leaves, unpack_xa)
+                   pack_leaves, unpack_fused, unpack_leaves, unpack_xa)
 from .markdup import StreamDupMarker
 from .pairing import InsertDistro
 
@@ -206,15 +212,69 @@ def align_stream(
     paired: bool = True,
     marker: Optional[StreamDupMarker] = None,
     device=None,
+    sorter_factory=None,
+    pre_close=None,
 ) -> Dict[str, str]:
     """Align a stream of (ReadBatch, ReadBatch|None) pairs.
 
     ReadBatch.comments entries of the form ``RG:<id>`` carry per-read read
     groups; otherwise cfg.rg_id applies.  Runs on ``cuda`` unless
-    ``device="cpu"``; raises when CUDA is asked for and absent."""
+    ``device="cpu"``; raises when CUDA is asked for and absent.
+    ``device`` may also be a parallel.mesh.Mesh: each batch's step then
+    runs sharded over it (the batch size a multiple of the mesh size).
+
+    ``sorter_factory(key, path, header) -> sorter`` replaces the default
+    ExternalBAMSorter per output stream (the multi-process coordinate
+    re-shard injects parallel.multihost.ReshardingSorter here); such
+    sorters are closed one after another in a fixed stream order, so the
+    exchanges they make while closing pair up across processes.
+    ``pre_close()`` runs after the last batch, before the sorters close
+    (the multi-process dup marker pads its exchange waves there)."""
+    trace_dir = os.environ.get("SSQ_TORCH_TRACE")
+    if not trace_dir:
+        return _align_stream(reference, batch_iter, out_prefix, config,
+                             rg_lines, paired, marker, device,
+                             sorter_factory, pre_close)
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = _align_stream(reference, batch_iter, out_prefix, config,
+                            rg_lines, paired, marker, device,
+                            sorter_factory, pre_close)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"align-{os.getpid()}-{int(time.time() * 1000)}.json"))
+    return out
+
+
+def _run_mesh(device, batch_size: int):
+    """(mesh or None, the run's device): the mesh given as ``device``
+    (its size must divide the batch), or on ``cuda`` (no card index)
+    every visible card when there are several and they divide the
+    batch."""
+    from ..parallel.mesh import Mesh, make_mesh
+
+    if isinstance(device, Mesh):
+        if batch_size % device.size:
+            raise ValueError(f"batch size {batch_size} is not a multiple "
+                             f"of the mesh size {device.size}")
+        return (device if device.size > 1 else None), device.devices[0]
+    dev = resolve_device(device)
+    n = torch.cuda.device_count()
+    if dev.type == "cuda" and dev.index is None and n > 1 \
+            and batch_size % n == 0:
+        return make_mesh(), dev
+    return None, dev
+
+
+def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
+                  paired, marker, device, sorter_factory, pre_close):
     t0 = time.time()
     cfg = config
-    dev = resolve_device(device)
+    mesh, dev = _run_mesh(device, cfg.batch_size)
     if cfg.seed_mode not in ("hash", "fm"):
         raise ValueError(f"unknown seed_mode {cfg.seed_mode!r}")
     with metrics.timer("align.index_load"):
@@ -234,11 +294,12 @@ def align_stream(
     )
     from ..formats.extsort import ExternalBAMSorter
 
-    sorters = {
-        key: ExternalBAMSorter(out_prefix + suffix, header,
-                               max_records=cfg.sort_max_records)
-        for key, suffix in _OUTPUTS
-    }
+    mk = sorter_factory or (lambda key, path, hdr: ExternalBAMSorter(
+        path, hdr, max_records=cfg.sort_max_records))
+    sorters = {key: mk(key, out_prefix + suffix, header)
+               for key, suffix in _OUTPUTS}
+    # an injected marker carries dup state shared across processes
+    # (parallel.multihost.WaveSyncDupMarker); the default is this run's
     if marker is None:
         marker = StreamDupMarker()
     lib_of_rg = _lib_map(rg_lines, cfg)
@@ -247,24 +308,26 @@ def align_stream(
     # (new dup signatures since the previous segment + sorter chunk lists)
     ckpt_path = out_prefix + ".align.ckpt"
     done_batches = 0
-    if cfg.resume and os.path.exists(ckpt_path):
-        seg = None
-        all_pairs: list = []
-        all_orphans: list = []
-        with open(ckpt_path, "rb") as fh:
-            while True:
-                try:
-                    s = pickle.load(fh)
-                except (EOFError, pickle.UnpicklingError):
-                    break  # truncated tail segment: resume from the last
-                all_pairs.extend(s["new_pairs"])
-                all_orphans.extend(s["new_orphans"])
-                seg = s
-        if seg is not None:
+    if cfg.resume:
+        segs = _read_journal(ckpt_path)
+        agree = getattr(marker, "agree_resume", None)
+        if agree is not None:
+            # processes that share a dup table resume together, at the
+            # last batch that every one of them checkpointed
+            at = [g["batch"] for g in segs]
+            target = agree(at)
+            segs = segs[:at.index(target) + 1] if target else []
+        if os.path.exists(ckpt_path):
+            # the journal is cut back to the segments resumed from (a
+            # torn tail segment would otherwise hide later appends)
+            _write_journal(ckpt_path, segs)
+        if segs:
+            seg = segs[-1]
             done_batches = seg["batch"]
             n_reads = seg["n_reads"]
             distro = seg["distro"]
-            marker.replay(all_pairs, all_orphans)
+            marker.replay([p for g in segs for p in g["new_pairs"]],
+                          [o for g in segs for o in g["new_orphans"]])
             marker.drain_new()
             for k in sorters:
                 sorters[k].restore(seg["sorters"][k])
@@ -366,17 +429,25 @@ def align_stream(
                     is_paired_batch and cfg.insert_override is None
                     and bi % cfg.distro_update_every == 0
                 )
-                step_ev = _step_events(dev)
-                i32_d, i16_d, cigfull_d, stats_d = fused_align_leaves(
-                    fm, seqs[0], lens[0],
-                    seqs[1] if is_paired_batch else None,
-                    lens[1] if is_paired_batch else None,
-                    distro=distro_arr,
-                    n_chains=cfg.n_chains,
-                    min_seed_len=cfg.min_seed_len,
-                    paired=is_paired_batch,
-                    kidx=kidx,
-                )
+                step_ev = None if mesh is not None else _step_events(dev)
+                step_args = (seqs[0], lens[0],
+                             seqs[1] if is_paired_batch else None,
+                             lens[1] if is_paired_batch else None)
+                step_kw = dict(distro=distro_arr, n_chains=cfg.n_chains,
+                               min_seed_len=cfg.min_seed_len, kidx=kidx)
+                if mesh is not None:
+                    # the same step sharded over the mesh; its gathered
+                    # outputs pack into the same two leaves
+                    from ..parallel.mesh import distributed_fused_step
+
+                    (meta_d, cig16_d, cigfull_d, ovf_d, stats_d, xam_d,
+                     xac_d, _) = distributed_fused_step(
+                        mesh, fm, *step_args, **step_kw)
+                    i32_d, i16_d = pack_leaves(meta_d, cig16_d, ovf_d,
+                                               xam_d, xac_d)
+                else:
+                    i32_d, i16_d, cigfull_d, stats_d = fused_align_leaves(
+                        fm, *step_args, paired=is_paired_batch, **step_kw)
                 if step_ev is not None:
                     step_ev[1].record()
                 if est_distro:
@@ -421,11 +492,22 @@ def align_stream(
         key, suffix = key_suffix
         sorters[key].close()
         path = out_prefix + suffix
-        bai.build_bai(path)
+        if not getattr(sorters[key], "skip_bai", False):
+            bai.build_bai(path)
         return suffix[1:], path
 
-    with ThreadPoolExecutor(max_workers=3) as close_pool:
-        outputs = dict(close_pool.map(_close_one, _OUTPUTS))
+    if pre_close is not None:
+        # the multi-process dup marker pads its exchange waves before any
+        # sorter closes: a process's close-time exchanges must not pair
+        # with a peer still waiting in a marker wave
+        pre_close()
+    if sorter_factory is not None:
+        # one after another, in stream order: factory sorters may make
+        # exchanges while closing
+        outputs = dict(map(_close_one, _OUTPUTS))
+    else:
+        with ThreadPoolExecutor(max_workers=3) as close_pool:
+            outputs = dict(close_pool.map(_close_one, _OUTPUTS))
     if cfg.verbose:
         dt = time.time() - t0
         print(f"[align] {n_reads} reads in {dt:.1f}s "
@@ -439,6 +521,28 @@ _OUTPUTS = (
     ("splitters", ".splitters.bam"),
     ("discordants", ".discordants.bam"),
 )
+
+
+def _read_journal(path: str) -> list:
+    """The complete segments of a checkpoint journal (none if absent; a
+    truncated tail segment is dropped)."""
+    segs: list = []
+    if not os.path.exists(path):
+        return segs
+    with open(path, "rb") as fh:
+        while True:
+            try:
+                segs.append(pickle.load(fh))
+            except (EOFError, pickle.UnpicklingError):
+                return segs
+
+
+def _write_journal(path: str, segs: list) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as fh:
+        for g in segs:
+            pickle.dump(g, fh)
+    os.replace(tmp, path)
 
 
 def _rg_line(cfg: AlignConfig) -> str:

@@ -93,6 +93,15 @@ def _gather_blob(blob: np.ndarray, starts: np.ndarray, sizes: np.ndarray,
     return blob[pos]
 
 
+def _ranked(stream, rank: int):
+    """(key, rank, raw) of a (key, raw) stream.  A generator expression
+    over ``enumerate`` would read the rank when it runs, after the loop
+    has moved on, so every stream would carry the last rank and equal
+    keys would fall back to comparing record bytes."""
+    for key, raw in stream:
+        yield key, rank, raw
+
+
 class _ChunkStream:
     """Iterates (key_tuple, raw_record_bytes) from one spilled chunk."""
 
@@ -271,7 +280,10 @@ class ExternalBAMSorter:
         self._closed = True
         if self.headerless:
             out = BGZFWriter(self.path, level=self.level)
-            w_raw = out.write
+            # a chunk stream yields records without their block_size,
+            # which the part keeps as the BAM body does (the reference
+            # writes them bare, so a part that spilled was unreadable)
+            w_raw = lambda raw: out.write(struct.pack("<i", len(raw)) + raw)
             w_blob = lambda b: out.write(b)
             close_out = out.close
         else:
@@ -288,10 +300,7 @@ class ExternalBAMSorter:
         streams = [_ChunkStream(p) for p in self._chunks]
         # decorate with (key, chunk_idx) so equal keys resolve in
         # chunk (= insertion) order — global stability
-        iters = [
-            ((key, ci, raw) for key, raw in s)
-            for ci, s in enumerate(streams)
-        ]
+        iters = [_ranked(s, ci) for ci, s in enumerate(streams)]
         for _key, _ci, raw in heapq.merge(*iters):
             w_raw(raw)
         close_out()
@@ -350,10 +359,7 @@ def merge_sorted_bams(parts: List[str], out_path: str, level: int = 6) -> None:
     streams = [_BAMRecordStream(p) for p in parts]
     header = streams[0].header
     with BAMWriter(out_path, header, level=level) as w:
-        iters = [
-            ((key, pi, raw) for key, raw in s)
-            for pi, s in enumerate(streams)
-        ]
+        iters = [_ranked(s, pi) for pi, s in enumerate(streams)]
         write_raw = w.write_raw
         for _key, _pi, raw in heapq.merge(*iters):
             write_raw(raw)

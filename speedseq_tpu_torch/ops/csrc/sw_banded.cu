@@ -81,10 +81,12 @@
 //     starts, a popcount of the ballot of mismatches (the staged query and
 //     window: !(q < 4 && q == r), a column past the window reads as N and
 //     a negative ref code mismatches) counts the chain's mismatches.  The
-//     jump is min(chain, 127) rows and NM gains min(the whole chain's
-//     mismatches, 127), as the word's saturating fields give it, also
-//     where a chain longer than 127 is counted again after the jump (a
-//     fault of the reference that the twin keeps: ROADMAP queue 3);
+//     jump is min(chain, 127) rows and NM gains the mismatches of the
+//     rows the jump covers, as the twin's saturating fields give it (the
+//     run's count at the cell less its count at the landing cell, which
+//     lies inside the run when the chain is longer than 127): a mismatch
+//     counts once however long its chain (the reference counts the
+//     whole chain at each jump, so it counts some twice);
 //   - gap moves step one cell, reading one code (a broadcast);
 //   - the op buffer is two registers a lane (slots l and l + 32, op | len
 //     << 2), written back reversed by two shuffles a lane, coalesced.
@@ -407,13 +409,14 @@ __device__ __forceinline__ unsigned cigar_row(int (&H)[4], int (&V)[4],
 
 // A diagonal move at (i, c): the chain of diagonal moves in band column c
 // that ends at row i (the 32 lanes read 32 rows of it at a time) gives the
-// jump, min(chain, 127), and NM's increase, min(the chain's mismatches,
-// 127), over the whole chain even where it is longer than 127.
+// jump, min(chain, 127), and NM's increase, the mismatches of the jumped
+// rows: min(all the chain's, 127) less min(those past the jump, 127), the
+// twin's saturating counts at the cell and at the landing cell.
 __device__ __forceinline__ void diag_chain(const unsigned short* col,
                                            int shift, const uint2* tab,
                                            const unsigned* winc, int i,
                                            int lane, int& step, int& nm_add) {
-  int chain = 0, mis = 0;
+  int chain = 0, mis = 0, near = 0;  // near: those of the first 127 rows
   for (int top = i;; top -= 32) {
     const int row = top - lane;
     bool on = false, mm = false;
@@ -423,18 +426,17 @@ __device__ __forceinline__ void diag_chain(const unsigned short* col,
       mm = qcls == 4 || qcls != (winc[row] & 15u);
     }
     const unsigned stop = __ballot_sync(FULL_MASK, !on);
-    const unsigned mb = __ballot_sync(FULL_MASK, on && mm);
-    if (stop) {
-      const int k = __ffs(stop) - 1;
-      chain += k;
-      mis += __popc(mb & ((1u << k) - 1));
-      break;
-    }
-    chain += 32;
+    const int k = stop ? __ffs(stop) - 1 : 32;  // chain rows this round
+    const unsigned mb =
+        __ballot_sync(FULL_MASK, on && mm) & (k < 32 ? (1u << k) - 1 : ~0u);
+    const int room = 127 - chain;  // rows of this round inside the jump
     mis += __popc(mb);
+    near += __popc(room >= 32 ? mb : mb & ((1u << max(room, 0)) - 1));
+    chain += k;
+    if (stop) break;
   }
   step = min(chain, 127);
-  nm_add = min(mis, 127);
+  nm_add = min(mis, 127) - min(mis - near, 127);
 }
 
 // One warp per alignment, lane l owns band columns 4l .. 4l+3.  out rows

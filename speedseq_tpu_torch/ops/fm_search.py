@@ -174,10 +174,11 @@ def fm_smem(fm: FMIndex, reads: torch.Tensor, lengths: torch.Tensor,
     r8 = reads.to(torch.uint8).contiguous()
     ln = lengths.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
-    rc = lib.ssq_fm_smem(
-        r8.data_ptr(), ln.data_ptr(), B, L, st.data_ptr(), G,
-        *_index_args(fm), *(t.data_ptr() for t in out), alive0.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the runtime launches on its device
+        rc = lib.ssq_fm_smem(
+            r8.data_ptr(), ln.data_ptr(), B, L, st.data_ptr(), G,
+            *_index_args(fm), *(t.data_ptr() for t in out),
+            alive0.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "fm_smem")
     LAUNCHES["fm_smem"] += 1
     return SmemLanes(*out, alive0)
@@ -209,9 +210,10 @@ def fm_sa_walk(fm: FMIndex, ranks: torch.Tensor) -> torch.Tensor:
     if flat.numel() == 0:
         return out.reshape(ranks.shape)
     lib = _load()
-    rc = lib.ssq_fm_sa_walk(
-        flat.data_ptr(), flat.numel(), *walk_args(fm), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        rc = lib.ssq_fm_sa_walk(
+            flat.data_ptr(), flat.numel(), *walk_args(fm), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "fm_sa_walk")
     LAUNCHES["fm_sa_walk"] += 1
     return out.reshape(ranks.shape)

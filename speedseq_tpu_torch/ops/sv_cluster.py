@@ -119,9 +119,10 @@ def cluster_scan(gid, s1, e1, lo2, hi2) -> torch.Tensor:
     tile_key = torch.empty(nb, dtype=torch.int64, device=dev)
     tile_count = torch.empty(nb, dtype=torch.int32, device=dev)
     g, a, b, c, d = (t.data_ptr() for t in cols)
-    rc = lib.ssq_sv_cluster(
-        g, n, a, b, c, d, tile_key.data_ptr(), tile_count.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):   # the runtime launches on its device
+        rc = lib.ssq_sv_cluster(
+            g, n, a, b, c, d, tile_key.data_ptr(), tile_count.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sv_cluster launch failed: cudaError {rc}")
     LAUNCHES["sv_cluster"] += 1

@@ -157,10 +157,11 @@ def sw_cigar(query, qlen, ref, params=(1, 4, 6, 1), max_ops: int = 48):
     ops = torch.empty((N, max_ops), dtype=torch.int32, device=dev)
     lens = torch.empty((N, max_ops), dtype=torch.int32, device=dev)
     if N:
-        rc = lib.ssq_sw_cigar(
-            q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, *params,
-            max_ops, out.data_ptr(), N, ops.data_ptr(), lens.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):   # the runtime launches on its device
+            rc = lib.ssq_sw_cigar(
+                q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
+                *params, max_ops, out.data_ptr(), N, ops.data_ptr(),
+                lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _launch_check(rc, "sw_cigar")
         LAUNCHES["sw_cigar"] += 1
     score, qbeg, qend, rbeg, rend, gscore, grend, n_ops, nm = out
@@ -178,9 +179,11 @@ def sw_score(query, qlen, ref, params=(1, 4, 6, 1)):
     q, ql, r = _i32(query), _i32(qlen), _i32(ref)
     out = torch.empty((5, N), dtype=torch.int32, device=q.device)
     if N:
-        rc = lib.ssq_sw_score(
-            q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, *params,
-            out.data_ptr(), N, torch.cuda.current_stream(q.device).cuda_stream)
+        with torch.cuda.device(q.device):
+            rc = lib.ssq_sw_score(
+                q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
+                *params, out.data_ptr(), N,
+                torch.cuda.current_stream(q.device).cuda_stream)
         _launch_check(rc, "sw_score")
         LAUNCHES["sw_score"] += 1
     return tuple(out)
@@ -310,7 +313,12 @@ def sw_cigar_plain(query, qlen, ref, params=(1, 4, 6, 1), max_ops: int = 48):
         fin = de == 0
         op = torch.where(de == 1, 0, torch.where(de == 2, 1, 2)).to(i32)
         step = torch.where(de == 1, torch.clamp_min((p >> 5) & 127, 1), 1)
-        nm_add = torch.where(de == 1, (p >> 12) & 127, 1)
+        # a jump's mismatches are those of the rows it covers: the run's
+        # count here less its count at the landing cell, which lies inside
+        # the run only when the run is longer than the 127-row jump
+        land = dirs[lane, (i - step).clamp(0, Lq - 1).long(), cc]
+        land_mis = torch.where(i - step >= 0, (land >> 12) & 127, 0)
+        nm_add = torch.where(de == 1, ((p >> 12) & 127) - land_mis, 1)
         change = ~fin & (cur_len > 0) & (op != cur_op)
         flush = act & (change | (fin & (cur_len > 0)))
         # slot max_ops is a dump column for lanes that do not flush

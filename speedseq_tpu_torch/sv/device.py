@@ -216,7 +216,7 @@ def genotype_counts(ref_n: torch.Tensor, alt_n: torch.Tensor,
 
 
 def svtyper_program(a, b, R: int, rec: Sequence[torch.Tensor], call_cols,
-                    scalars, device=None):
+                    scalars, device=None, mesh=None):
     """Counts and GL for a batch of calls of one sample (the JAX package's
     ``_svtyper_kernel``).
 
@@ -226,8 +226,39 @@ def svtyper_program(a, b, R: int, rec: Sequence[torch.Tensor], call_cols,
     cr, sa, rev1, rev2, proper, mateok); call_cols: 7 (C,) numpy columns
     (svcode, tid1, pos1, tid2, pos2, strand1, strand2); scalars: (slop, w,
     wiggle, max_normal).  Returns device tensors (ref_n, alt_n, rs, as, rp,
-    ap, gl, gt, gq, sq, ab), not yet fetched."""
-    dev = resolve_device(device)
+    ap, gl, gt, gq, sq, ab), not yet fetched.
+
+    ``mesh`` (a parallel.mesh.Mesh; ``device`` is then unused) shards the
+    call axis: calls are padded to a multiple of 8 x the mesh size (a pad
+    call has empty windows), the record columns go to every device, and
+    the outputs are concatenated in shard order on the mesh's first
+    device.  Calls are independent, so the output is the unsharded one."""
+    if mesh is None:
+        return _svtyper_one(a, b, R, rec, call_cols, scalars,
+                            resolve_device(device))
+    C, n = len(a), mesh.size
+    step = 8 * n
+    Cp = max(step, -(-C // step) * step)
+    pad = lambda x: np.concatenate(
+        [np.asarray(x), np.zeros((Cp - C,) + np.shape(x)[1:],
+                                 np.asarray(x).dtype)])
+    a_p, b_p = pad(a), pad(b)
+    calls_p = [pad(c) for c in call_cols]
+    per = Cp // n
+
+    def shard(s, dev):
+        sl = slice(s * per, (s + 1) * per)
+        return _svtyper_one(a_p[sl], b_p[sl], R, [t.to(dev) for t in rec],
+                            [c[sl] for c in calls_p], scalars, dev)
+
+    outs = mesh.map(shard)
+    dev0 = mesh.devices[0]
+    return tuple(torch.cat([o[k].to(dev0) for o in outs])[:C]
+                 for k in range(len(outs[0])))
+
+
+def _svtyper_one(a, b, R: int, rec, call_cols, scalars, dev: torch.device):
+    """svtyper_program on one device."""
     metrics.add(f"sv.svtyper_programs.{dev.type}")
     slop, w, wiggle, max_normal = (int(s) for s in scalars)
     n = rec[0].shape[0]

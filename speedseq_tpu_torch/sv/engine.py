@@ -16,7 +16,9 @@ device: cuda unless the caller asks for cpu.
 from __future__ import annotations
 
 import os
+import struct
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -242,11 +244,28 @@ def run_sv(
     output: str,
     config: SVConfig = SVConfig(),
     device=None,
-) -> str:
+    _shard: Optional[Tuple[int, int]] = None,
+    _exchange=None,
+) -> Optional[str]:
     """Run the sv module on ``device`` (cuda unless the caller asks for
-    cpu); returns the output path."""
+    cpu); returns the output path.
+
+    ``_shard=(P, pid)`` restricts the per-sample work (SVTyper genotyping
+    and CNV depth) to the samples with ``si % P == pid``: the
+    multi-process counterpart of the reference's per-sample svtyper /
+    cnvnator loops (bin/speedseq:1490-1531).  Insert stats, evidence and
+    clustering are deterministic and computed alike on every process;
+    the per-sample results are exchanged as fixed-width float64 matrices
+    over ``_exchange``, and process 0 writes the VCF (the others return
+    None)."""
     cfg = config
     device = resolve_device(device)
+    P_, pid_ = _shard if _shard is not None else (1, 0)
+
+    def _local(si: int) -> bool:
+        return si % P_ == pid_
+
+    t_start = time.time()
     _convert_cram_inputs(samples, cfg)
     _ensure_side_bams(samples, cfg.verbose)
     with metrics.timer("sv.insert_stats"):
@@ -272,12 +291,14 @@ def run_sv(
     warm_error: List[BaseException] = []
     if cfg.genotype:
         genotypers = [SVGenotyper(s.full, st, device=device)
-                      for s, st in zip(samples, stats)]
+                      if _local(si) else None
+                      for si, (s, st) in enumerate(zip(samples, stats))]
 
         def _warm():
             try:
                 for g in genotypers:
-                    g._columns()
+                    if g is not None:
+                        g._columns()
             except BaseException as e:     # re-raised on the main thread
                 warm_error.append(e)
 
@@ -313,8 +334,10 @@ def run_sv(
             depth = [DepthProfile.from_bam(s.full, cfg.reference,
                                            bin_size=cfg.cnv_bin_size,
                                            device=device)
-                     for s in samples]
-            cnv_calls = [d.call_all() for d in depth]
+                     if _local(si) else None
+                     for si, s in enumerate(samples)]
+            cnv_calls = [d.call_all() if d is not None else []
+                         for d in depth]
 
     fmt_keys = ["GT", "SU", "PE", "SR"]
     if cfg.genotype:
@@ -350,13 +373,27 @@ def run_sv(
             for c in calls
         ], np.float64)
 
-    # read-depth side outputs (bin/speedseq:1550-1551)
+    # read-depth side outputs (bin/speedseq:1550-1551), written by the
+    # process that owns the sample
     if cfg.annotate_depth:
         base = output[:-7] if output.endswith(".vcf.gz") else output
         for s, d, cc in zip(samples, depth, cnv_calls):
             if d is not None:
                 d.write_calls_txt(f"{base}.{s.name}.readdepth.txt", cc)
                 d.write_calls_bed(f"{base}.{s.name}.readdepth.bed", cc)
+
+    if _shard is not None and _exchange is not None:
+        t_local = time.time() - t_start
+        grs_all, cn_arr = _exchange_sample_results(
+            _exchange, grs_all, cn_arr, len(calls), len(samples), _local,
+            cfg.genotype)
+        print(f"[sv-mh] p{pid_}: local {t_local:.2f}s exchange "
+              f"{time.time() - t_start - t_local:.2f}s", flush=True)
+        if pid_ != 0:
+            for g in genotypers:
+                if g is not None:
+                    g.close()
+            return None
 
     with metrics.timer("sv.emit"):
         records: List[VCFRecord] = []
@@ -418,6 +455,75 @@ def run_sv(
         if output.endswith(".gz"):
             tabix_mod.build_tbi(output)
     return output
+
+
+# --------------------------------------------------------------------------
+# multi-process per-sample result exchange (parallel.multihost.sv_multihost)
+# --------------------------------------------------------------------------
+
+_GT_CODE = {"0/0": 0.0, "0/1": 1.0, "1/1": 2.0, "./.": 3.0}
+_CODE_GT = {0: "0/0", 1: "0/1", 2: "1/1", 3: "./."}
+_GR_W = 14       # packed GenotypeResult width
+
+
+def _pack_grs(grs: List[Optional[GenotypeResult]]) -> np.ndarray:
+    """GenotypeResults → (C, 14) f64 rows (NaN col 0 = None)."""
+    out = np.full((len(grs), _GR_W), np.nan)
+    for i, gr in enumerate(grs):
+        if gr is None:
+            continue
+        gl = list(gr.gl[:3]) + [0.0] * (3 - len(gr.gl[:3]))
+        out[i] = [_GT_CODE.get(gr.gt, 3.0), gr.gq, gr.sq, *gl,
+                  gr.dp, gr.ro, gr.ao, gr.rs, gr.as_, gr.rp, gr.ap, gr.ab]
+    return out
+
+
+def _unpack_grs(arr: np.ndarray) -> List[Optional[GenotypeResult]]:
+    out: List[Optional[GenotypeResult]] = []
+    for row in arr:
+        if np.isnan(row[0]):
+            out.append(None)
+            continue
+        out.append(GenotypeResult(
+            gt=_CODE_GT[int(row[0])], gq=int(row[1]), sq=float(row[2]),
+            gl=[float(x) for x in row[3:6]], dp=int(row[6]),
+            ro=int(row[7]), ao=int(row[8]), rs=int(row[9]),
+            as_=int(row[10]), rp=int(row[11]), ap=int(row[12]),
+            ab=float(row[13])))
+    return out
+
+
+def _exchange_sample_results(exchange, grs_all, cn_arr, n_calls: int,
+                             n_samples: int, is_local, genotyped: bool):
+    """Allgather per-sample genotype/CN matrices so every process holds
+    every sample's results (fixed-width f64 payloads over the same
+    transport the align/var exchanges use)."""
+    parts = []
+    for si in range(n_samples):
+        if not is_local(si):
+            continue
+        g = (_pack_grs(grs_all[si]) if genotyped
+             else np.zeros((0, _GR_W)))
+        c = cn_arr[si] if cn_arr[si] is not None else np.zeros(0)
+        parts.append(struct.pack("<qqq", si, g.shape[0], len(c))
+                     + g.tobytes() + np.asarray(c, np.float64).tobytes())
+    payload = struct.pack("<q", len(parts)) + b"".join(parts)
+    peers = exchange.allgather(2 ** 20, payload)
+    for pl in peers:
+        (nloc,) = struct.unpack_from("<q", pl, 0)
+        off = 8
+        for _ in range(nloc):
+            si, gC, cC = struct.unpack_from("<qqq", pl, off)
+            off += 24
+            if gC:
+                g = np.frombuffer(
+                    pl, np.float64, gC * _GR_W, off).reshape(gC, _GR_W)
+                off += gC * _GR_W * 8
+                grs_all[si] = _unpack_grs(g)
+            if cC:
+                cn_arr[si] = np.frombuffer(pl, np.float64, cC, off).copy()
+                off += cC * 8
+    return grs_all, cn_arr
 
 
 def _bnd_records(call, vid, ref_names, sample_cols, fmt_keys, cfg):

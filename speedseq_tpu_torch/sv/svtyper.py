@@ -94,15 +94,17 @@ class SVGenotyper:
     def close(self):
         self._cols_cache = None
 
-    def genotype_all(self, calls: List[SVCall],
-                     min_mapq: int = 1) -> List[GenotypeResult]:
+    def genotype_all(self, calls: List[SVCall], min_mapq: int = 1,
+                     mesh=None) -> List[GenotypeResult]:
         """All calls in one device program per R tier.
 
         The whole BAM decodes once into sorted record columns; one sorted
         searchsorted sweep gives each (call, breakpoint) its record range;
         the program gathers the (C, 2, R) windows, classifies
         split/crossing/pair evidence, counts, and genotypes.  Counts are
-        integer-identical to svtyper's per-record rules."""
+        integer-identical to svtyper's per-record rules.  ``mesh`` (a
+        parallel.mesh.Mesh) shards each program's call axis, with the
+        record columns replicated (sv.device.svtyper_program)."""
         from . import device as dev
 
         if not calls:
@@ -152,7 +154,7 @@ class SVGenotyper:
         outs = [dev.svtyper_program(
             a[sub], b[sub], R, rec,
             tuple(c[sub] for c in (code, tid1, pos1, tid2, pos2, st1, st2)),
-            scalars, device=self.device)
+            scalars, device=self.device, mesh=mesh)
             for sub, R in zip(tiers, tier_R)]
         # stitch tiers back into call order
         merged = []

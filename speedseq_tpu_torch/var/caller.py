@@ -880,10 +880,12 @@ def call_window(
     n_samples: int,
     cfg: CallerConfig = CallerConfig(),
     device=None,
+    mesh=None,
 ) -> List[SiteCall]:
     """Genotype all candidate loci of one window pileup (single-window
     convenience: prepare → one genotyping program → emit), on ``device``
-    (cuda unless the caller asks for cpu).
+    (cuda unless the caller asks for cpu); ``mesh`` shards the
+    genotyping program's site axis (var.device.genotype_sites).
 
     The numeric core (GL terms, per-sample reductions, GQ, posterior
     QUAL, placement/strand balance, pooled-discrete joint) runs as one
@@ -899,7 +901,7 @@ def call_window(
     g = genotype_sites(
         pw.obs, pw.quals, pw.sample, pw.rpos, pw.strand, pw.rlen_half,
         pw.n_alts, cfg.theta, n_samples, device=device,
-        pooled=cfg.pooled_discrete and n_samples == 2,
+        pooled=cfg.pooled_discrete and n_samples == 2, mesh=mesh,
     )
     return finish_window(pw, g, cfg)
 
@@ -909,10 +911,11 @@ def genotype_windows(
     n_samples: int,
     cfg: CallerConfig,
     device=None,
+    mesh=None,
 ) -> List[Optional["object"]]:
     """Run ONE genotyping program per compacted read width over every
-    prepared window's sites (site axes concatenated) and slice the
-    results back per window."""
+    prepared window's sites (site axes concatenated; sharded over
+    ``mesh`` when given) and slice the results back per window."""
     from .device import genotype_sites, slice_genotypes
 
     live = [(i, pw) for i, pw in enumerate(prepared) if pw is not None]
@@ -937,7 +940,7 @@ def genotype_windows(
         n_alts = np.concatenate([pw.n_alts for _, pw in group])
         g_all = genotype_sites(
             obs, quals, sample, rpos, strand, rlen_half, n_alts,
-            cfg.theta, n_samples, device=device, pooled=pooled,
+            cfg.theta, n_samples, device=device, pooled=pooled, mesh=mesh,
         )
         at = 0
         for i, pw in group:

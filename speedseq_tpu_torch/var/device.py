@@ -311,6 +311,7 @@ def genotype_sites(
     n_samples: int,
     device=None,
     pooled: bool = False,
+    mesh=None,
 ) -> SiteGenotypes:
     """Host wrapper: compact the read axis per site (only covering
     reads), run the genotyping program on ``device`` (cuda unless the
@@ -318,7 +319,11 @@ def genotype_sites(
 
     ``sample``/``strand``/``rlen_half`` may be (R,) per-window-read
     arrays (compacted here together with obs) or pre-compacted (S, R)
-    arrays."""
+    arrays.  ``mesh`` (a parallel.mesh.Mesh; ``device`` is then unused)
+    shards the site axis: sites are padded to a multiple of 64 x the
+    mesh size, each shard runs the program on its device, and the
+    results are concatenated in shard order.  No value crosses sites,
+    so the output is the unsharded one."""
     obs = np.asarray(obs, np.int8)
     quals = np.asarray(quals, np.float32)
     rpos = np.asarray(rpos, np.int32)
@@ -329,18 +334,36 @@ def genotype_sites(
         obs, quals, sample, rpos, strand, rlen_half = compact_site_reads(
             obs, quals, sample, rpos, strand, rlen_half)
     S = obs.shape[0]
-    device = resolve_device(device)
     pooled = bool(pooled and n_samples == 2)
-    lp = torch.from_numpy(_esf_log_prior_table(float(theta))).to(device) \
-        if pooled else None
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
-            (obs, quals, sample, rpos, strand, rlen_half,
-             np.asarray(n_alts, np.int32))]
-    f_out, i_out = _genotype_sites_program(
-        *args, theta=float(theta), lp_joint=lp, n_samples=n_samples,
-        pooled=pooled)
-    f_out, i_out = f_out.cpu().numpy(), i_out.cpu().numpy()
-    metrics.add(f"var.genotype_programs.{device.type}")
+    host = (obs, quals, sample, rpos, strand, rlen_half,
+            np.asarray(n_alts, np.int32))
+
+    def run(dev, arrays):
+        lp = (torch.from_numpy(_esf_log_prior_table(float(theta))).to(dev)
+              if pooled else None)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+        f, i = _genotype_sites_program(
+            *args, theta=float(theta), lp_joint=lp, n_samples=n_samples,
+            pooled=pooled)
+        metrics.add(f"var.genotype_programs.{dev.type}")
+        return f.cpu().numpy(), i.cpu().numpy()
+
+    if mesh is None:
+        f_out, i_out = run(resolve_device(device), host)
+    else:
+        # pad rows: no observations, MAX_ALTS alleles (as the JAX pad)
+        n = mesh.size
+        Sp = _bucket(_bucket(S, 64), 64 * n)
+        fills = (-1, 1.0, -1, -1, 0, 1.0, MAX_ALTS)
+        padded = [np.concatenate([a, np.full((Sp - S,) + a.shape[1:], v,
+                                             a.dtype)])
+                  for a, v in zip(host, fills)]
+        per = Sp // n
+        outs = mesh.map(lambda s, dev: run(
+            dev, [a[s * per:(s + 1) * per] for a in padded]))
+        f_out = np.concatenate([o[0] for o in outs])[:S]
+        i_out = np.concatenate([o[1] for o in outs])[:S]
     A, G, M = MAX_ALTS, N_GT, n_samples
     gl = f_out[:, : M * G].reshape(S, M, G)
     qual = f_out[:, M * G]

@@ -24,12 +24,14 @@ device call fails the run.
 from __future__ import annotations
 
 import os
+import struct
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..formats import bai as bai_mod
@@ -207,15 +209,32 @@ def run_var(
     record_filter=None,
     _somatic_header: bool = False,
     device=None,
+    _shard: Optional[Tuple[int, int]] = None,
+    _part_out: Optional[str] = None,
 ) -> str:
     """Run variant calling on ``device`` (cuda unless the caller asks for
-    cpu); returns the output path.
+    cpu); returns the output path.  On ``cuda`` (no card index) with
+    several cards visible, the genotyping program's site axis is sharded
+    over all of them (a parallel.mesh.Mesh; the records do not change).
 
     ``record_filter(rec) -> Optional[VCFRecord]`` post-processes the
     records that pass the vawk filter (somatic mode injects the SSC
-    filter here); ``_somatic_header`` declares ``##INFO SSC``."""
+    filter here); ``_somatic_header`` declares ``##INFO SSC``.
+
+    ``_shard=(P, pid)`` restricts this process to the windows with index
+    ``wi % P == pid`` (round-robin over the longest-first order: the
+    multi-process counterpart of the reference's window fan-out,
+    bin/speedseq:719); ``_part_out`` then writes the sorted records as a
+    raw-byte part stream instead of the VCF (parallel.multihost merges
+    the parts)."""
     cfg = config
     device = resolve_device(device)
+    mesh = None
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh()
     fa = FastaFile(reference)
     with BAMReader(bam_paths[0]) as rd0:
         refs = rd0.header.refs
@@ -366,12 +385,15 @@ def run_var(
         return wi, out
 
     items = list(enumerate(windows))
+    if _shard is not None:
+        P_, pid_ = _shard
+        items = [it for it in items if it[0] % P_ == pid_]
     results = []
 
     def _genotype_and_emit(batch):
         with metrics.timer("var.genotype"):
             gs = genotype_windows([pw for _, _, pw in batch], len(samples),
-                                  cfg.caller, device=device)
+                                  cfg.caller, device=device, mesh=mesh)
         with metrics.timer("var.emit"):
             results.extend(_emit(wi, w, pw, g)
                            for (wi, w, pw), g in zip(batch, gs))
@@ -405,6 +427,19 @@ def run_var(
         for r in recs
     ]
     tagged.sort(key=lambda t: t[:3])
+    if _part_out is not None:
+        # sorted raw-byte part stream of (order, pos, wi, len) + VCF line
+        # entries: the multi-process merge heap-merges them without
+        # parsing a record (the reference concatenates window files and
+        # sorts, bin/speedseq:800-806)
+        tmp = _part_out + ".tmp"
+        with open(tmp, "wb") as fh:
+            for order_, pos_, wi_, r in tagged:
+                line = (r.to_line() + "\n").encode()
+                fh.write(struct.pack("<qqqI", order_, pos_, wi_, len(line)))
+                fh.write(line)
+        os.replace(tmp, _part_out)
+        return _part_out
     # somatic mode declares ##INFO SSC (the reference injects it into
     # the merged header, bin/speedseq:1087)
     header = build_var_header(refs, samples, somatic=_somatic_header)

@@ -41,6 +41,8 @@ from speedseq_tpu_torch.index.suffix import suffix_array
 from speedseq_tpu_torch.ops import fm_search
 from speedseq_tpu_torch.utils import fm_cases, synth
 
+from nm_recount import Genome, assert_record_equal, no_kernel_nm
+
 torch.set_num_threads(1)
 
 BATCH = 60
@@ -666,8 +668,7 @@ def both_runs(align_inputs):
         device="cpu")
     mp = pytest.MonkeyPatch()
     oc, os_ = spl.sw_pallas_cigar, spl.sw_pallas
-    mp.setattr(spl, "sw_pallas_cigar",
-               lambda *a, interpret=False, **k: oc(*a, interpret=True, **k))
+    mp.setattr(spl, "sw_pallas_cigar", no_kernel_nm(oc))
     mp.setattr(spl, "sw_pallas",
                lambda *a, interpret=False, **k: os_(*a, interpret=True, **k))
     mp.setattr(jpipe, "_pallas_ok", lambda: True)
@@ -682,15 +683,17 @@ def both_runs(align_inputs):
 
 
 @pytest.mark.parametrize("out", OUTS)
-def test_fm_align_record_equal(both_runs, out):
+def test_fm_align_record_equal(both_runs, align_inputs, out):
+    """Record-equal, NM as tests/nm_recount.py holds it."""
     ref, port = both_runs
+    genome = Genome(align_inputs[1])
     hj, rj = read_bam(ref[out])
     hp, rp = read_bam(port[out])
     strip = lambda t: [l for l in t.splitlines() if not l.startswith("@PG")]
     assert strip(hj.text) == strip(hp.text)
     assert len(rj) == len(rp) and rj
     for a, b in zip(rj, rp):
-        assert a == b, (a.qname, a.flag)
+        assert_record_equal(a, b, genome)
 
 
 def test_fm_cli_align_and_realign(align_inputs, tmp_path):

@@ -617,3 +617,194 @@ def test_fm_align_cuda_matches_cpu(fm_case, tmp_path):
         assert hc.text == hg.text
         assert len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)), k
     assert len(read_bam(outs["cuda"]["bam"])[1]) >= 2000
+
+
+# ------------------------------------------------ sharded and multi-process
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    from speedseq_tpu_torch.utils import synth
+
+    d = tmp_path_factory.mktemp("gmesh")
+    g = synth.make_genome(seed=41, n_del=6)
+    fa = str(d / "g.fa")
+    synth.write_fasta(fa, g)
+    rd = synth.simulate(g, 2048, read_len=150, seed=43, kill_frac=0.02)
+    synth.write_fastq_pair(str(d / "1.fq"), str(d / "2.fq"), rd)
+    return d, fa, rd
+
+
+def test_mesh_step_two_shards_on_one_card(mesh_world):
+    """distributed_fused_step on [cuda:0] * 2 against one shard: packed
+    outputs bit-equal, XA lanes as a set, n_aligned equal; both SW
+    kernels launched from the shard threads."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import _load_fm
+    from speedseq_tpu_torch.parallel.mesh import (distributed_fused_step,
+                                                  make_mesh)
+
+    _, fa, rd = mesh_world
+    _, fm, kidx = _load_fm(fa, torch.device("cuda"))
+    B = 1024
+    pad = lambda s: np.pad(s[:B], ((0, 0), (0, 1)), constant_values=4)
+    args = (pad(rd.seq1), np.full(B, 150, np.int32), pad(rd.seq2),
+            np.full(B, 150, np.int32))
+    before = dict(sw_banded.LAUNCHES)
+    outs = [distributed_fused_step(make_mesh(devices=devs), fm, *args,
+                                   kidx=kidx)
+            for devs in (["cuda:0"], ["cuda:0"] * 2)]
+    assert all(sw_banded.LAUNCHES[k] > before[k] for k in before)
+    one, two = outs
+    for k in (0, 1, 2, 3, 4):
+        assert torch.equal(one[k], two[k]), k
+    xa = lambda m: {(e,) + tuple(m[e, :, j].tolist())
+                    for e in range(m.shape[0])
+                    for j in torch.nonzero(m[e, 0] >= 0).flatten().tolist()}
+    assert xa(one[5].cpu()) == xa(two[5].cpu())
+    assert one[7] == two[7] > B
+
+
+def test_two_process_align_on_one_card(mesh_world):
+    """Two align workers sharing cuda:0 over FileExchange: the BAM triple
+    of one process on cuda, record for record."""
+    _need_card()
+    import json
+    import subprocess
+    import sys
+
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.formats.bam import read_bam
+
+    d, fa, _ = mesh_world
+    f1, f2 = str(d / "1.fq"), str(d / "2.fq")
+    single = align_fastq(fa, f1, f2, out_prefix=str(d / "single"),
+                         config=AlignConfig(batch_size=256, insert_override=(
+                             320.0, 50.0, 520, 120)), device="cuda")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("SSQ_COORDINATOR", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "speedseq_tpu_torch.parallel.multihost",
+         "align", fa, f1, f2, str(d / "multi"), "2", str(p), str(d / "ex"),
+         "256", "320,50,520,120", "gpu2"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for p in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, res):
+        assert p.returncode == 0, err[-3000:]
+        assert "on cuda:0" in out
+    multi = json.loads(res[0][0].strip().splitlines()[-1])
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        hs, rs = read_bam(single[k])
+        hm, rm = read_bam(multi[k])
+        assert hs.text == hm.text
+        assert len(rs) == len(rm) and all(a == b for a, b in zip(rs, rm)), k
+
+
+def _need_cards():
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one CUDA device: the mesh over several cards needs two")
+
+
+def test_mesh_over_every_card(mesh_world, tmp_path):
+    """make_mesh() over every visible card against one card: the packed
+    step, coordinate_reshard (against the CPU), sharded genotyping and
+    align_stream's BAM triple, bit for bit."""
+    _need_cards()
+    from speedseq_tpu_torch.align.pipeline import (AlignConfig, _load_fm,
+                                                   align_fastq)
+    from speedseq_tpu_torch.formats.bam import read_bam
+    from speedseq_tpu_torch.parallel import mesh as pmesh
+    from speedseq_tpu_torch.utils.var_cases import random_sites
+    from speedseq_tpu_torch.var import device as vdevice
+
+    d, fa, rd = mesh_world
+    mesh = pmesh.make_mesh()
+    n = mesh.size
+    assert [str(x) for x in mesh.devices] == [f"cuda:{i}" for i in range(n)]
+    _, fm, kidx = _load_fm(fa, torch.device("cuda"))
+    B = 256 * n
+    pad = lambda s: np.pad(s[:B], ((0, 0), (0, 1)), constant_values=4)
+    args = (pad(rd.seq1), np.full(B, 150, np.int32), pad(rd.seq2),
+            np.full(B, 150, np.int32))
+    one = pmesh.distributed_fused_step(pmesh.make_mesh(devices=["cuda:0"]),
+                                       fm, *args, kidx=kidx)
+    got = pmesh.distributed_fused_step(mesh, fm, *args, kidx=kidx)
+    for k in (0, 1, 2, 3, 4):
+        assert torch.equal(one[k], got[k]), k
+    assert one[7] == got[7]
+
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 1 << 40, (n, 4096)).astype(np.int64)
+    rows = rng.integers(0, 1 << 30, (n, 4096, 3)).astype(np.int64)
+    bounds = np.sort(rng.integers(0, 1 << 40, n - 1)).astype(np.int64)
+    want = pmesh.coordinate_reshard(pmesh.make_mesh(devices=["cpu"] * n),
+                                    keys, rows, bounds, 1024)
+    for a, b in zip(want, pmesh.coordinate_reshard(mesh, keys, rows, bounds,
+                                                   1024)):
+        assert torch.equal(a, b.cpu())
+
+    sites = random_sites(7, 300, 140, 2, 2)
+    g1 = vdevice.genotype_sites(*sites, 0.001, 2, device="cuda", pooled=True)
+    gn = vdevice.genotype_sites(*sites, 0.001, 2, pooled=True, mesh=mesh)
+    for x, y in zip(g1[:-1], gn[:-1]):
+        assert np.array_equal(x, y)
+
+    f1, f2 = str(d / "1.fq"), str(d / "2.fq")
+    cfg = AlignConfig(batch_size=256 * n)
+    outs = {name: align_fastq(fa, f1, f2, out_prefix=str(tmp_path / name),
+                              config=cfg, device=dev)
+            for name, dev in (("one", "cuda:0"), ("all", mesh))}
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        assert read_bam(outs["one"][k])[1] == read_bam(outs["all"][k])[1], k
+
+
+def test_processes_one_per_card(mesh_world):
+    """One align worker per card (cuda:{rank}), resharded over gloo: the
+    BAM triple of one process."""
+    _need_cards()
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.formats.bam import read_bam
+
+    d, fa, _ = mesh_world
+    P = torch.cuda.device_count()
+    f1, f2 = str(d / "1.fq"), str(d / "2.fq")
+    single = align_fastq(fa, f1, f2, out_prefix=str(d / "single_pc"),
+                         config=AlignConfig(batch_size=128, insert_override=(
+                             320.0, 50.0, 520, 120)), device="cuda")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root,
+               SSQ_COORDINATOR=f"localhost:{port}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "speedseq_tpu_torch.parallel.multihost",
+         "align", fa, f1, f2, str(d / "per_card"), str(P), str(p),
+         str(d / "ex_pc"), "128", "320,50,520,120", "pc", "reshard"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in range(P)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for rank, (p, (out, err)) in enumerate(zip(procs, res)):
+        assert p.returncode == 0, err[-3000:]
+        assert f"CollectiveExchange on cuda:{rank}" in out
+    multi = json.loads(res[0][0].strip().splitlines()[-1])
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        hs, rs = read_bam(single[k])
+        hm, rm = read_bam(multi[k])
+        assert hs.text == hm.text and rs == rm, k

@@ -46,6 +46,8 @@ from speedseq_tpu_torch.sv import engine as tengine
 from speedseq_tpu_torch.utils import synth
 from speedseq_tpu_torch.utils.metrics import metrics
 
+from nm_recount import Genome, assert_record_equal, no_kernel_nm
+
 # One torch thread per pytest worker process, as tests/test_torch_somatic.py
 # explains (the port's CPU path spins against other workers otherwise).
 torch.set_num_threads(1)
@@ -88,8 +90,7 @@ def both_realigns(realign_inputs):
     snap = metrics.snapshot()
     mp = pytest.MonkeyPatch()
     oc, os_ = spl.sw_pallas_cigar, spl.sw_pallas
-    mp.setattr(spl, "sw_pallas_cigar",
-               lambda *a, interpret=False, **k: oc(*a, interpret=True, **k))
+    mp.setattr(spl, "sw_pallas_cigar", no_kernel_nm(oc))
     mp.setattr(spl, "sw_pallas",
                lambda *a, interpret=False, **k: os_(*a, interpret=True, **k))
     mp.setattr(jpipe, "_pallas_ok", lambda: True)
@@ -106,14 +107,16 @@ def _no_pg(text):
 
 
 @pytest.mark.parametrize("out", OUTS)
-def test_realign_triple_matches_jax(both_realigns, out):
+def test_realign_triple_matches_jax(both_realigns, realign_inputs, out):
+    """Record-equal, NM as tests/nm_recount.py holds it."""
     ref, port, _ = both_realigns
+    genome = Genome(realign_inputs[1])
     hj, rj = jread_bam(ref[out])
     hp, rp = jread_bam(port[out])
     assert _no_pg(hj.text) == _no_pg(hp.text)
     assert len(rj) == len(rp) and (out != "bam" or len(rp) >= 720)
     for a, b in zip(rj, rp):
-        assert a == b, (a.qname, a.flag)
+        assert_record_equal(a, b, genome)
     assert os.path.exists(port[out] + ".bai")
 
 
