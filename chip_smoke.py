@@ -4,10 +4,11 @@
     python3 chip_smoke.py --against DIR [DIR ...] [--ablate DIR ...]
 
 The second form runs only the device and build phases and against: the
-fm_search.cu, sv_cluster.cu and sw_banded.cu of earlier versions (each
-DIR holds any of them, fm_search.cu and sv_cluster.cu with a389f54's C
-interface or this checkout's, sw_banded.cu with c292ab1's or this
-checkout's; e.g. `git show c292ab1:speedseq_tpu_torch/ops/csrc/
+fm_search.cu, sv_cluster.cu, sw_banded.cu, sw_unbanded.cu and
+sv_combine.cu of earlier versions (each DIR holds any of them,
+fm_search.cu and sv_cluster.cu with a389f54's C interface or this
+checkout's, sw_banded.cu with c292ab1's or this checkout's, the other two
+with this checkout's; e.g. `git show c292ab1:speedseq_tpu_torch/ops/csrc/
 sw_banded.cu > build/c292ab1/sw_banded.cu`) built beside this
 checkout's, every kernel's output equal to its twin's (but those of the
 --ablate sources: a kernel with a part cut out, timed to measure that
@@ -19,16 +20,19 @@ the genome and genome-piles shapes; sw_score at the main path's 768 x 151
 x 256, at 768 x 150 x 256, 768 x 150 x 254 and 32,768 x 151 x 256,
 sw_cigar at the main path's 16,384, 1,024 and 256 x 151 x 256, the same
 lane counts x 150 x 256 and on the inputs one batch of the align cell
-gives it, with the SASS loops of both (registers, shared bytes, and each
-row loop's instructions, shuffles, loads and stores) and the device time
-alone and per kernel of the versions without host syncs.  Then the
+gives it; sw_unbanded_score on hap_scan_lanes, on 280 lanes of var's 150
+x 192 and on 250 x 320; sv_combine_logsum on both sides of the SV_PILE
+pile and of 2,000 rows of random evidence; with the SASS loops of both
+SW kernels (registers, shared bytes, and each row loop's instructions,
+shuffles, loads and stores) and the device time alone and per kernel of
+the versions without host syncs.  Then the
 nvidia-smi line and the last line.
 
 Phases, each printing one JSON line:
 
   device   the card (nvidia-smi name, power limit, max SM clock)
   build    nvcc build of the kernels from the checkout (one nvcc per source,
-           all started together), with ptxas reports
+           all five started together), with ptxas reports
   kernels  each SW kernel against its plain PyTorch twin on the card at
            production shapes (bit-equal), with kernel (per wrapper call and
            the device's alone) / twin / bound times; sw_cigar also with its
@@ -74,8 +78,10 @@ Phases, each printing one JSON line:
            CLI on cuda, then ``var`` through the CLI on cuda (ten 100 kb
            windows): wall, Mbp/s, reads/s, genotyping and haplotype-scan
            counters and times, recall/precision against the truth (>= 0.92
-           each), and runs over the first 200 kb (four windows) on cpu, on
-           cuda and on cuda with 4 threads that must give the same records
+           each), sw_unbanded_score launched once a scan call, and runs
+           over the first 200 kb (four windows) on cpu, on cuda and on
+           cuda with 4 threads that must give the same records (the cuda
+           run's largest scan call kept for the kernels phase)
   somatic  one 1 Mbp contig; germline heterozygous SNVs (0.1 %) in both
            samples, somatic heterozygous SNVs (0.02 %) in the tumor only;
            normal 100,000 pairs (30x) and tumor 200,000 pairs (60x) of
@@ -84,16 +90,21 @@ Phases, each printing one JSON line:
            transcripts): wall, Mbp/s, reads/s, var and annotate timers,
            device counters, PASS counts, recall (>= 0.6) and precision
            (>= 0.9) against the planted somatic SNVs, SSC, CSQ and PED
-           checks, and runs over the first 200 kb on cpu, on cuda and on
-           cuda with 4 threads that must give the same records
+           checks, sw_unbanded_score launched once a scan call, and runs
+           over the first 200 kb on cpu, on cuda and on cuda with 4
+           threads that must give the same records
   sv       two contigs (1.5 + 0.5 Mbp) whose sample carries 8 deletions,
            4 tandem duplications and 4 inversions (all heterozygous) and a
            reciprocal translocation, 200,000 pairs × 150 bp (30x) aligned
            by the port's CLI on cuda, then ``sv -g -d -P -R`` through the
-           CLI on cuda: wall, Mbp/s, reads/s, per-stage timers, device
+           CLI on cuda (the combination library's load and first two
+           launches timed before it, apart): wall, Mbp/s, reads/s,
+           per-stage timers, device
            counters, recall/precision against the planted events (>= 0.9
-           each), genotypes and CN of the matched calls, and cpu/cuda
-           parity of the records and readdepth calls over the same BAMs
+           each), genotypes and CN of the matched calls, sv_cluster and
+           sv_combine_logsum (once a side) launched, and cpu/cuda parity
+           of the records and readdepth calls over the same BAMs (the
+           cuda run's combination inputs kept for the kernels phase)
   multi    sharded and multi-process runs on the card: the mesh step on
            one align-cell batch over [cuda:0] * 2 and over every visible
            card against fused_align_packed (bit-equal, XA as a set),
@@ -108,8 +119,15 @@ Phases, each printing one JSON line:
            at the sv phase's evidence, at 1,048,576 rows in 16 groups and
            at 1,048,576 rows in 256 skewed groups with piles (genome-piles)
   combine  the cluster sweep + curve combination (``cluster_and_combine``)
-           at one pile of SV_PILE members on cuda, timed, against cpu: its
-           member-rank loop runs one step per member
+           at one pile of SV_PILE members on cuda (sv_combine_logsum, one
+           launch a side; its inputs kept for the kernels phase), timed,
+           against cpu (the twin's member-rank loop, one step per member)
+  kernels  sw_unbanded_score against its twin (bit-equal) on the var
+           run's largest scan call, on hap_scan_lanes and on 250 bp reads
+           (250 x 320); sv_combine_logsum against its twin (bit-equal) on
+           both sides of the sv run's cluster pass and of the pile, with
+           index_add_ of the materialised log rows as the library
+           yardstick
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
@@ -119,6 +137,7 @@ CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -134,6 +153,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 rate (NVIDIA data sheet)
 # with its neighbour (multiply-add, add-then-max, 3-input max) once
 INT32_ISSUE_PER_SM = 128
 POPC_PER_SM = 16                   # popcounts per SM per clock (sm_90)
+MUFU_PER_SM = 16                   # MUFU (lg2, ex2, rcp) per SM per clock
+FP32_PER_SM = 128                  # fp32 adds per SM per clock
 GENOME = (2_500_000, 2_000_000, 1_500_000)   # contig lengths, 6 Mbp
 PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
@@ -156,6 +177,23 @@ def emit(obj) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+@contextlib.contextmanager
+def _spying(mod, name, keep):
+    """Within the block every call of ``mod.<name>`` first hands its
+    arguments to ``keep``; the real function then runs as before."""
+    real = getattr(mod, name)
+
+    def spy(*a, **k):
+        keep(*a, **k)
+        return real(*a, **k)
+
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
 
 
 def nvidia_smi(fields: str) -> str:
@@ -549,15 +587,17 @@ def _c_signature(path, fn):
 
 def _earlier_libs(dirs):
     """{stem: [(name, lib, this_interface, ptxas lines)]}: the ctypes
-    libraries of the fm_search.cu, sv_cluster.cu and sw_banded.cu each
-    directory holds, named by the directory, each built with the C
-    interface its source declares, function by function: this checkout's
-    (its argument types are copied) or an earlier one (a389f54's walk on
-    occ, BWT and mark arrays and sweep on gid segment starts; c292ab1's
-    cigar kernel with its direction scratch ``dirs`` after max_ops)."""
+    libraries of the fm_search.cu, sv_cluster.cu, sw_banded.cu,
+    sw_unbanded.cu and sv_combine.cu each directory holds, named by the
+    directory, each built with the C interface its source declares,
+    function by function: this checkout's (its argument types are copied)
+    or an earlier one (a389f54's walk on occ, BWT and mark arrays and
+    sweep on gid segment starts; c292ab1's cigar kernel with its direction
+    scratch ``dirs`` after max_ops)."""
     import ctypes
 
-    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
+    from speedseq_tpu_torch.ops import (fm_search, sv_cluster, sv_combine,
+                                        sw_banded, sw_unbanded)
     from speedseq_tpu_torch.ops.nvcc_build import build_library
 
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -570,7 +610,9 @@ def _earlier_libs(dirs):
                                                       vp]}
     MODS = {"fm_search": (fm_search, ("ssq_fm_smem", "ssq_fm_sa_walk")),
             "sv_cluster": (sv_cluster, ("ssq_sv_cluster",)),
-            "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score"))}
+            "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score")),
+            "sw_unbanded": (sw_unbanded, ("ssq_sw_unbanded_score",)),
+            "sv_combine": (sv_combine, ("ssq_sv_combine_logsum",))}
     out = {stem: [] for stem in MODS}
     for d in dirs:
         for stem, (mod, fns) in MODS.items():
@@ -762,7 +804,8 @@ def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
     with a part cut out, timed beside the others to measure that part's
     share).  The kernels are called through their libraries directly, so
     no wrapper counts those launches."""
-    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
+    from speedseq_tpu_torch.ops import (fm_search, sv_cluster, sv_combine,
+                                        sw_banded, sw_unbanded)
 
     earlier = _earlier_libs(dirs + (args.ablate or []))
     ablated = {os.path.basename(os.path.normpath(d))
@@ -775,11 +818,16 @@ def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
         _against_fm(work, fasta, genome, args, earlier["fm_search"])
     if earlier["sv_cluster"]:
         _against_sv(work, args, earlier["sv_cluster"])
+    if earlier["sw_unbanded"]:
+        _against_unbanded(args, earlier["sw_unbanded"])
+    if earlier["sv_combine"]:
+        _against_combine(args, earlier["sv_combine"])
     emit({"phase": "against", "ptxas": {
         "earlier": {stem: {name: lines for name, _, _, lines in libs}
                     for stem, libs in earlier.items()},
         "this": {m.__name__.rsplit(".", 1)[1]: _ptxas_lines(m.BUILD_INFO)
-                 for m in (fm_search, sv_cluster, sw_banded)}}})
+                 for m in (fm_search, sv_cluster, sw_banded, sw_unbanded,
+                           sv_combine)}}})
 
 
 def _ptxas_lines(info):
@@ -1030,6 +1078,87 @@ def _against_sv(work, args, earlier):
               "profiler_us_per_call": {
                   name: _kernel_split(run) for name, run in runs
                   if name in synced}})
+
+
+def _against_unbanded(args, earlier):
+    """The unbanded scan of each library in turns on hap_scan_lanes
+    (150 x 192), on 280 lanes of var's shape (about one var call) and on
+    250 bp reads (250 x 320), with the device time (phase_against)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import (hap_scan_lanes,
+                                                    unbanded_lanes)
+
+    libs = earlier + [("this", sw_unbanded._load(), True, [])]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, host in (
+            ("hap_scan_lanes, 150 x 192", hap_scan_lanes(args.seed)),
+            ("var call size, 150 x 192", unbanded_lanes(
+                150, 192, seed=args.seed, n_edge=248)),
+            ("250 bp reads, 250 x 320", unbanded_lanes(250, 320,
+                                                       seed=args.seed))):
+        q, ql, r = (torch.from_numpy(a).cuda() for a in host)
+        n, Lq, Lr = q.shape[0], q.shape[1], r.shape[1]
+        want = list(sw_unbanded.sw_score_unbanded_plain(q, ql, r))
+        out = torch.empty((5, n), dtype=torch.int32, device="cuda")
+
+        def run(lib):
+            rc = lib.ssq_sw_unbanded_score(
+                q.data_ptr(), ql.data_ptr(), r.data_ptr(), n, Lq, Lr, 1, 4,
+                6, 1, out.data_ptr(), n, stream)
+            check(rc == 0, f"sw_unbanded_score launch failed ({rc})")
+            return list(out)
+
+        _in_turns("sw_unbanded_score", f"{label}, {n} lanes",
+                  [(name, lambda l=lib: run(l)) for name, lib, _, _ in libs],
+                  want, queued=[name for name, _, _, _ in libs])
+
+
+def _against_combine(args, earlier):
+    """The member log-sum of each library in turns on both sides of the
+    SV_PILE pile and of 2,000 rows of random many-cluster evidence, with
+    the device time (phase_against)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_combine
+    from speedseq_tpu_torch.sv import device as sd
+    from speedseq_tpu_torch.sv.cluster import evidence_columns
+    from speedseq_tpu_torch.utils import sv_cases
+
+    libs = earlier + [("this", sv_combine._load(), True, [])]
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(args.seed + 400)
+    for label, ev in (("pile", sv_cases.pile_evidence(rng, SV_PILE)),
+                      ("random", sv_cases.random_evidence(rng, 2000))):
+        calls = []
+        with _spying(sv_combine, "combine_logsum",
+                     lambda *a: calls.append(a)):
+            sd.cluster_and_combine(*evidence_columns(ev)[1:], 0.0,
+                                   device="cuda")
+        for side, a in enumerate(calls):
+            first, sizes, lo, start, clen, curves, W = (
+                t.to(torch.int32).contiguous() if torch.is_tensor(t) and
+                not t.is_floating_point() else t for t in a)
+            want = [sv_combine.sv_combine_logsum_plain(*a)]
+            acc = torch.empty_like(want[0])
+
+            def run(lib):
+                rc = lib.ssq_sv_combine_logsum(
+                    first.data_ptr(), sizes.data_ptr(), lo.data_ptr(),
+                    lo.shape[0], start.data_ptr(), clen.data_ptr(),
+                    curves.data_ptr(), curves.shape[1], W, acc.data_ptr(),
+                    stream)
+                check(rc == 0, f"sv_combine_logsum launch failed ({rc})")
+                return [acc]
+
+            _in_turns("sv_combine_logsum",
+                      f"{label}, side {side + 1}, {start.shape[0]} rows, "
+                      f"{lo.shape[0]} clusters",
+                      [(name, lambda l=lib: run(l))
+                       for name, lib, _, _ in libs],
+                      want, queued=[name for name, _, _, _ in libs])
 
 
 def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
@@ -1417,10 +1546,14 @@ def phase_realign(work, fasta):
 
 
 def phase_var(work, args):
+    """var at 1 Mbp x 30x through the CLI on cuda; returns (the haplotype
+    scan kernel's launches in that run, the inputs of the largest scan
+    call of the cuda parity run, on the card)."""
     import numpy as np
     import torch
 
     from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.ops import sw_unbanded
     from speedseq_tpu_torch.formats.fasta import decode_bases
     from speedseq_tpu_torch.formats.vcf import read_vcf
     from speedseq_tpu_torch.utils import sim
@@ -1456,10 +1589,12 @@ def phase_var(work, args):
     metrics.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sw_unbanded.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["var", "--device", "cuda", "-o", out, fasta, bam])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = sw_unbanded.LAUNCHES["sw_unbanded_score"]
     snap = metrics.snapshot()
     check(rc == 0, f"var CLI returned {rc}")
     check(snap.get("var.windows_failed", 0) == 0, "a var window failed")
@@ -1481,14 +1616,27 @@ def phase_var(work, args):
     with open(bed, "w") as fh:
         fh.writelines(f"chrV\t{a}\t{a + step}\n"
                       for a in range(0, VAR_PARITY_BP, step))
-    par, raw = {}, {}
+    par, raw, scan_in, par_metrics = {}, {}, {}, {}
+
+    def keep(query, qlen, ref, params=(1, 4, 6, 1)):
+        if query.is_cuda and query.shape[0] > scan_in.get("n", 0):
+            scan_in.update(n=query.shape[0], args=tuple(
+                t.clone() for t in (query, qlen, ref)))
+
     for name, dev, threads in (("cpu", "cpu", 1), ("cuda", "cuda", 1),
                                ("cuda_t4", "cuda", 4)):
         path = os.path.join(work, f"par_{name}.vcf.gz")
+        spy = (_spying(sw_unbanded, "sw_score_unbanded", keep)
+               if name == "cuda" else contextlib.nullcontext())
+        metrics.reset()
         t0 = time.perf_counter()
-        run_var(fasta, [bam], path, windows_bed=bed, device=dev,
-                config=VarConfig(threads=threads))
+        with spy:
+            run_var(fasta, [bam], path, windows_bed=bed, device=dev,
+                    config=VarConfig(threads=threads))
         par[name] = (read_vcf(path)[1], time.perf_counter() - t0)
+        # the split of the run (timers summed over threads)
+        par_metrics[name] = {k: v for k, v in metrics.snapshot().items()
+                             if k.startswith("time.var.")}
         with open(path, "rb") as fh:
             raw[name] = fh.read()
     why = records_mismatch(par["cpu"][0], par["cuda"][0])
@@ -1505,6 +1653,7 @@ def phase_var(work, args):
           "hap_scan_calls": snap.get("var.hap_scan_calls.cuda", 0),
           "hap_scan_lanes": snap.get("var.hap_scan_lanes.cuda", 0),
           "hap_scan_s": snap.get("time.var.hap_scan", 0.0),
+          "hap_scan_launches": launches,
           "genotype_programs": snap.get("var.genotype_programs.cuda", 0),
           "windows": snap.get("var.windows", 0),
           "sites": snap.get("var.sites", 0), "records": len(recs),
@@ -1513,6 +1662,7 @@ def phase_var(work, args):
           "parity_bp": VAR_PARITY_BP, "parity_records": len(par["cuda"][0]),
           "parity_cpu_s": par["cpu"][1], "parity_cuda_s": par["cuda"][1],
           "parity_cuda_t4_s": par["cuda_t4"][1],
+          "parity_metrics": par_metrics,
           "parity_ok": why is None,
           "threads_byte_equal": raw["cuda_t4"] == raw["cuda"],
           "metrics": snap,
@@ -1522,12 +1672,19 @@ def phase_var(work, args):
     check(len(par["cuda"][0]) > 0, "no records in the parity region")
     check(why is None, f"var cpu vs cuda: {why}")
     check(raw["cuda_t4"] == raw["cuda"], "var -t 4 on cuda differs from -t 1")
+    check(launches > 0 and launches == snap.get("var.hap_scan_calls.cuda"),
+          f"sw_unbanded_score launched {launches} times in the var run, "
+          f"not once a scan call")
+    return launches, scan_in["args"]
 
 
 def phase_somatic(work, args):
+    """somatic at 1 Mbp (30x + 60x) through the CLI on cuda; returns the
+    haplotype scan kernel's launches in that run."""
     import torch
 
     from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.ops import sw_unbanded
     from speedseq_tpu_torch.formats.vcf import read_vcf
     from speedseq_tpu_torch.utils import somatic_cases
     from speedseq_tpu_torch.utils.metrics import metrics
@@ -1555,11 +1712,13 @@ def phase_somatic(work, args):
     metrics.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sw_unbanded.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["somatic", "--device", "cuda", "-t", "1", "--gff", gtf,
                    "-o", out, fasta, bams["normal"], bams["tumor"]])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = sw_unbanded.LAUNCHES["sw_unbanded_score"]
     snap = metrics.snapshot()
     check(rc == 0, f"somatic CLI returned {rc}")
     check(snap.get("var.windows_failed", 0) == 0, "a somatic window failed")
@@ -1618,6 +1777,7 @@ def phase_somatic(work, args):
           "annotate_s": snap.get("time.annotate", 0.0),
           "genotype_programs": snap.get("var.genotype_programs.cuda", 0),
           "hap_scan_lanes": snap.get("var.hap_scan_lanes.cuda", 0),
+          "hap_scan_launches": launches,
           "records": len(recs), "pass": len(passed),
           "non_pass": len(recs) - len(passed),
           "recall": recall, "precision": precision,
@@ -1643,6 +1803,10 @@ def phase_somatic(work, args):
     check(coding > 0, "no record has a coding consequence")
     check(len(par["cuda"][0]) > 0, "no records in the somatic parity region")
     check(why is None, f"somatic cpu vs cuda vs cuda -t 4: {why}")
+    check(launches > 0 and launches == snap.get("var.hap_scan_calls.cuda"),
+          f"sw_unbanded_score launched {launches} times in the somatic run, "
+          f"not once a scan call")
+    return launches
 
 
 def _sv_mismatch(a, b):
@@ -1796,14 +1960,16 @@ def _sweep_cols(sv):
 
 
 def phase_sv(work, args):
-    """sv at 2 Mbp × 30x through the CLI on cuda; returns (the sweep
-    kernel's launches in that run, the run's sorted sweep inputs)."""
+    """sv at 2 Mbp × 30x through the CLI on cuda; returns (the sweep and
+    curve-combination kernels' launches in that run, the run's sorted
+    sweep inputs, the combination kernel's inputs of the cuda parity run,
+    one a side, on the card)."""
     import numpy as np
     import torch
 
     from speedseq_tpu_torch import cli
     from speedseq_tpu_torch.formats.vcf import read_vcf
-    from speedseq_tpu_torch.ops import sv_cluster
+    from speedseq_tpu_torch.ops import sv_cluster, sv_combine
     from speedseq_tpu_torch.sv.engine import SVConfig, SVSample, run_sv
     from speedseq_tpu_torch.utils.metrics import metrics
 
@@ -1814,17 +1980,36 @@ def phase_sv(work, args):
     total_bp = sum(SV_BP)
     bam = aln + ".bam"
 
+    # the combination library's one-time costs, apart from the run: its
+    # load (ctypes), then its first and second launch on one 1-cell cluster
+    one_time = {}
+    t0 = time.perf_counter()
+    sv_combine._load()
+    one_time["combine_load_s"] = time.perf_counter() - t0
+    tiny = [torch.zeros(1, dtype=torch.int32, device="cuda")
+            for _ in range(5)]
+    tiny[1] += 1                                   # sizes
+    tiny[4] += 1                                   # clen
+    tiny.append(torch.ones((1, 1), device="cuda"))  # curves
+    for k in ("combine_first_launch_s", "combine_second_launch_s"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sv_combine.combine_logsum(*tiny, 1)
+        torch.cuda.synchronize()
+        one_time[k] = time.perf_counter() - t0
+
     out = os.path.join(work, "sv")
     metrics.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sv_cluster.reset_launches()
+    sv_combine.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["sv", "--device", "cuda", "-g", "-d", "-P", "-R", fasta,
                    "-B", bam, "-o", out])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sv_cluster.LAUNCHES)
+    launches = {**sv_cluster.LAUNCHES, **sv_combine.LAUNCHES}
     snap = metrics.snapshot()
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"sv CLI returned {rc}")
@@ -1832,6 +2017,9 @@ def phase_sv(work, args):
         check(snap.get(f"sv.{k}.cuda", 0) > 0, f"sv.{k} did not run on cuda")
     check(launches["sv_cluster"] > 0, "sv_cluster was not launched on the "
           "main path")
+    check(launches["sv_combine_logsum"] == 2 * snap.get(
+        "sv.cluster_scans.cuda", 0), "sv_combine_logsum was not launched "
+          "once a side of each cluster pass on the main path")
     _, recs = read_vcf(out + ".sv.vcf.gz")
     ev_hit, junctions, calls = _sv_truth_match(recs, events, ta, tb, names)
     recall = (sum(ev_hit) + min(len(junctions), 2)) / (len(events) + 2)
@@ -1843,14 +2031,19 @@ def phase_sv(work, args):
 
     # cpu/cuda parity over the same BAM triple
     spl, disc = aln + ".splitters.bam", aln + ".discordants.bam"
-    par = {}
+    par, combine_in = {}, []
+    keep = lambda *a: combine_in.append(tuple(
+        t.clone() if torch.is_tensor(t) else t for t in a))
     for dev in ("cpu", "cuda"):
         path = os.path.join(work, f"svpar_{dev}.sv.vcf.gz")
         metrics.reset()      # the cuda run's timers: sv once the card is warm
+        spy = (_spying(sv_combine, "combine_logsum", keep) if dev == "cuda"
+               else contextlib.nullcontext())
         t0 = time.perf_counter()
-        run_sv([SVSample("sv", bam, spl, disc)], path,
-               SVConfig(genotype=True, annotate_depth=True, prob_curves=True,
-                        reference=fasta), device=dev)
+        with spy:
+            run_sv([SVSample("sv", bam, spl, disc)], path,
+                   SVConfig(genotype=True, annotate_depth=True,
+                            prob_curves=True, reference=fasta), device=dev)
         par[dev] = (read_vcf(path)[1], time.perf_counter() - t0,
                     path[:-7] + ".sv.readdepth.txt")
     why = (_sv_mismatch(par["cpu"][0], par["cuda"][0])
@@ -1867,6 +2060,7 @@ def phase_sv(work, args):
           "cluster_s": snap.get("time.sv.cluster", 0.0),
           "cluster_sweep_s": snap.get("time.sv.cluster_sweep", 0.0),
           "cluster_combine_s": snap.get("time.sv.cluster_combine", 0.0),
+          **one_time,
           "svtyper_s": snap.get("time.sv.svtyper", 0.0),
           "cnv_s": snap.get("time.sv.cnv", 0.0),
           "emit_s": snap.get("time.sv.emit", 0.0),
@@ -1893,7 +2087,7 @@ def phase_sv(work, args):
           f"median CN over matched duplications {med(cn('DUP'))}")
     check(why is None, f"sv cpu vs cuda: {why}")
 
-    return launches, _sweep_cols(sv)
+    return launches, _sweep_cols(sv), combine_in
 
 
 MULTI_PAIRS = 32_768                # multi: 4 align-cell batches, 2 waves
@@ -2241,13 +2435,197 @@ def phase_sv_kernel(cols_main, args, clock_hz: float):
     return rec
 
 
-def phase_sv_combine(args) -> None:
+def _unbanded_bound(q, ql, r, clock_hz, n_sms):
+    """The least time of the unbanded scan on these inputs: the rows it
+    runs x Lr cells x ops/sw_unbanded.py:OPS_PER_CELL int32 instructions,
+    or its bytes (query, qlen and window read, five outputs written)."""
+    import numpy as np
+
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    q, ql, r = (a.cpu().numpy() if hasattr(a, "cpu") else a
+                for a in (q, ql, r))
+    n, Lq = q.shape
+    rows = np.clip(ql.astype(np.int64), 0, Lq).sum()
+    return _ops_bound(float(rows) * r.shape[1] * sw_unbanded.OPS_PER_CELL,
+                      0, 4.0 * (q.size + ql.size + r.size + 5 * n), clock_hz,
+                      n_sms)
+
+
+def phase_unbanded_kernel(var_call, args, clock_hz, n_sms):
+    """sw_unbanded_score against its twin on the card (bit-equal) on the
+    inputs of the var run's largest haplotype-scan call, on
+    utils/var_cases.hap_scan_lanes (150 x 192) and on 250 bp reads (250 x
+    320, unbanded_lanes): wrapper ms, device ms (queue filled first), the
+    twin's ms on the card, the bound.  Returns the kernels-line record (at
+    the var call's shape, the one the main path gives it)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import (hap_scan_lanes,
+                                                    unbanded_lanes)
+
+    kern, plain = sw_unbanded.sw_score_unbanded, \
+        sw_unbanded.sw_score_unbanded_plain
+    rec = None
+    for label, host in (("var call", var_call),
+                        ("hap_scan_lanes", hap_scan_lanes(args.seed)),
+                        ("250 bp reads", unbanded_lanes(250, 320,
+                                                        seed=args.seed))):
+        q, ql, r = (torch.as_tensor(a).cuda() for a in host)
+        before = sw_unbanded.LAUNCHES["sw_unbanded_score"]
+        got = [t.cpu() for t in kern(q, ql, r)]
+        torch.cuda.synchronize()
+        check(sw_unbanded.LAUNCHES["sw_unbanded_score"] == before + 1,
+              "sw_unbanded_score did not launch")
+        want = [t.cpu() for t in plain(q, ql, r)]
+        max_err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(got, want))
+        check(max_err == 0, f"sw_unbanded_score disagrees with its twin "
+              f"({label}: {max_err})")
+        ms = cuda_ms(lambda: kern(q, ql, r), reps=20)
+        device_ms = cuda_ms(lambda: kern(q, ql, r), reps=20, queued=True)
+        plain_ms = cuda_ms(lambda: plain(q, ql, r), reps=3, warmup=1)
+        bound = _unbanded_bound(q, ql, r, clock_hz, n_sms)
+        emit({"phase": "kernels", "kernel": "sw_unbanded_score",
+              "case": label, "lanes": q.shape[0], "Lq": q.shape[1],
+              "Lr": r.shape[1], "bit_equal": True, "ms": ms,
+              "device_ms": device_ms, "plain_ms": plain_ms, **bound})
+        if label == "var call":
+            rec = {"name": "sw_unbanded_score", "route": "cuda",
+                   "source": "speedseq_tpu_torch/ops/csrc/sw_unbanded.cu",
+                   "replaces": "speedseq_tpu/align/sw.py:221",
+                   "launches": 0, "max_abs_err": max_err, "ms": ms,
+                   "device_ms": device_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"], "library_ms": None,
+                   "shape": [q.shape[0], q.shape[1], r.shape[1]]}
+    return rec
+
+
+def _combine_bound(first, sizes, lo, start, clen, curves, W, clock_hz,
+                   n_sms):
+    """The least time of the member log-sum on these inputs: its logs (one
+    MUFU op each, at the cells inside a member's curve) or its fp32 adds
+    (members x W), over their rates, or its bytes (the cells inside each
+    member's curve, clipped to W, read once, as are the starts, lengths
+    and the (C,) first/sizes/lo; the (C, W) sums written).  The padding of
+    the (n, D) curves past a member's length is never read."""
+    import numpy as np
+
+    m, l, st, cl = (t.cpu().numpy().astype(np.int64)
+                    for t in (sizes, lo, start, clen))
+    n, C = curves.shape[0], len(l)
+    # the rows of cluster c are first[c] .. first[c] + sizes[c] - 1; a
+    # member's cells are the columns w in [0, W) with 0 <= w - off < clen
+    off = st - l[np.repeat(np.arange(C), m)]
+    logs = float(np.clip(np.minimum(W, off + cl) - np.maximum(off, 0), 0,
+                         None).sum())
+    adds = float(n) * W
+    ms = {"logs": logs / (n_sms * MUFU_PER_SM) / clock_hz * 1e3,
+          "adds": adds / (n_sms * FP32_PER_SM) / clock_hz * 1e3,
+          "bytes": 4.0 * (logs + 2 * n + 3 * C + C * W)
+          / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"logs": logs, "fp32_adds": adds, "logs_ms": ms["logs"],
+            "adds_ms": ms["adds"], "bytes_ms": ms["bytes"],
+            "bound_ms": ms[by],
+            "bound_by": "bytes" if by == "bytes" else "operations"}
+
+
+def _log_rows(first, sizes, lo, start, clen, curves, W):
+    """The (n, W) member log rows and each row's cluster, materialised (the
+    library yardstick's input)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_combine
+
+    C, D = lo.shape[0], curves.shape[1]
+    cid = torch.repeat_interleave(torch.arange(C, device=lo.device),
+                                  sizes.long())
+    col = torch.arange(W, dtype=torch.int32, device=lo.device)[None, :]
+    rel = col - (start - lo[cid])[:, None]
+    inside = (rel >= 0) & (rel < clen[:, None])
+    vals = torch.gather(curves, 1, rel.clamp(0, D - 1).long())
+    eps = torch.tensor(sv_combine.EPS, dtype=torch.float32,
+                       device=lo.device)
+    return cid, torch.where(inside, torch.log(torch.maximum(vals, eps)),
+                            torch.log(eps))
+
+
+def phase_combine_kernel(sv_calls, pile_calls, clock_hz, n_sms):
+    """sv_combine_logsum against its twin on the card (bit-equal) on the
+    inputs of the sv run's cluster pass (both sides) and of the SV_PILE
+    pile (both sides): kernel ms, device ms, the twin's ms on the card,
+    the bound, and as the library yardstick ``index_add_`` of the
+    materialised (n, W) log rows into (C, W) (not order-equal: its sum
+    order is the device's; the rows are made beforehand).  Returns the
+    kernels-line record (the sv run's first side)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_combine
+
+    kern, plain = sv_combine.combine_logsum, sv_combine.sv_combine_logsum_plain
+    rec = None
+    for label, calls in (("sv run", sv_calls), ("pile", pile_calls)):
+        check(len(calls) == 2, f"{label}: {len(calls)} combination calls, "
+              f"not one a side")
+        for side, a in enumerate(calls):
+            before = sv_combine.LAUNCHES["sv_combine_logsum"]
+            got = kern(*a).cpu()
+            torch.cuda.synchronize()
+            check(sv_combine.LAUNCHES["sv_combine_logsum"] == before + 1,
+                  "sv_combine_logsum did not launch")
+            want = plain(*a).cpu()
+            bit_equal = torch.equal(got.view(torch.int32),
+                                    want.view(torch.int32))
+            max_err = float((got - want).abs().max())
+            check(bit_equal, f"sv_combine_logsum disagrees with its twin "
+                  f"({label}, side {side + 1}: {max_err})")
+            ms = cuda_ms(lambda: kern(*a), reps=20)
+            device_ms = cuda_ms(lambda: kern(*a), reps=20, queued=True)
+            plain_ms = (cuda_ms(lambda: plain(*a), reps=3, warmup=1)
+                        if label == "sv run" else
+                        cuda_ms(lambda: plain(*a), reps=1, warmup=0))
+            cid, rows = _log_rows(*a)
+            C, W = a[2].shape[0], a[6]
+            lib = lambda: torch.zeros((C, W), device="cuda").index_add_(
+                0, cid, rows)
+            library_ms = cuda_ms(lib, reps=20)
+            lib_err = float((lib().cpu() - want).abs().max())
+            bound = _combine_bound(*a, clock_hz, n_sms)
+            emit({"phase": "kernels", "kernel": "sv_combine_logsum",
+                  "case": label, "side": side + 1, "clusters": C,
+                  "members": a[3].shape[0],
+                  "largest_cluster": int(a[1].max()), "W": W,
+                  "D": a[5].shape[1], "bit_equal": True, "ms": ms,
+                  "device_ms": device_ms, "plain_ms": plain_ms,
+                  "library_ms": library_ms,
+                  "library_max_abs_err": lib_err, **bound})
+            del cid, rows
+            if label == "sv run" and side == 0:
+                rec = {"name": "sv_combine_logsum", "route": "cuda",
+                       "source": "speedseq_tpu_torch/ops/csrc/sv_combine.cu",
+                       "replaces": "speedseq_tpu/sv/device.py:120",
+                       "launches": 0, "max_abs_err": max_err, "ms": ms,
+                       "device_ms": device_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"],
+                       "library_ms": library_ms,
+                       "library": "index_add_ of the (n, W) log rows, "
+                       "not order-equal", "shape": [C, W]}
+    return rec
+
+
+def phase_sv_combine(args):
     """``cluster_and_combine`` at one cluster of SV_PILE members, on cuda
     (timed, after a warm-up at 64 members) and on cpu: the same integers,
-    curves within atol 2e-5."""
+    curves within atol 2e-5.  Returns the combination kernel's inputs of
+    the cuda run, one a side, on the card."""
     import numpy as np
     import torch
 
+    from speedseq_tpu_torch.ops import sv_combine
     from speedseq_tpu_torch.sv import device as sd
     from speedseq_tpu_torch.sv.cluster import evidence_columns
     from speedseq_tpu_torch.utils import sv_cases
@@ -2257,14 +2635,20 @@ def phase_sv_combine(args) -> None:
     warm = evidence_columns(sv_cases.pile_evidence(rng, 64))[1:]
     sd.cluster_and_combine(*warm, 0.0, device="cuda")
     cols = evidence_columns(sv_cases.pile_evidence(rng, SV_PILE))[1:]
-    out = {}
+    out, pile_in = {}, []
     for dev in ("cuda", "cpu"):
         metrics.reset()
         torch.cuda.synchronize()
+        sv_combine.reset_launches()
+        spy = (_spying(sv_combine, "combine_logsum", lambda *a:
+                       pile_in.append(a)) if dev == "cuda"
+               else contextlib.nullcontext())
         t0 = time.perf_counter()
-        out[dev] = sd.cluster_and_combine(*cols, 0.0, device=dev)
+        with spy:
+            out[dev] = sd.cluster_and_combine(*cols, 0.0, device=dev)
         out[dev + "_s"] = time.perf_counter() - t0
         out[dev + "_metrics"] = metrics.snapshot()
+        out[dev + "_launches"] = sv_combine.LAUNCHES["sv_combine_logsum"]
     g, c = out["cuda"], out["cpu"]
     check(g.n_clusters == c.n_clusters == 1,
           f"pile of {SV_PILE} gave {g.n_clusters} clusters")
@@ -2272,22 +2656,28 @@ def phase_sv_combine(args) -> None:
                ((g.pos, c.pos), (g.ci, c.ci), (g.ci95, c.ci95), (g.nz, c.nz))
                for k in (0, 1))
     err = max(float(np.abs(g.prob[k] - c.prob[k]).max()) for k in (0, 1))
-    emit({"phase": "combine", "members": SV_PILE, "rank_steps": 2 * SV_PILE,
+    emit({"phase": "combine", "members": SV_PILE,
+          "cuda_launches": out["cuda_launches"],
+          "cpu_launches": out["cpu_launches"],
           "cuda_s": out["cuda_s"], "cpu_s": out["cpu_s"],
           "cuda_metrics": out["cuda_metrics"],
           "cpu_metrics": out["cpu_metrics"], "ints_equal": same,
           "prob_max_abs_err": err})
     check(same and err <= 2e-5, "cluster_and_combine: cuda and cpu disagree "
           f"on the pile (ints equal {same}, prob err {err})")
+    check(out["cuda_launches"] == 2 and out["cpu_launches"] == 0,
+          "sv_combine_logsum: not one launch a side on cuda, none on cpu")
+    return pile_in
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--against", nargs="+", metavar="DIR",
-                    help="only time the fm_search.cu, sv_cluster.cu and "
-                    "sw_banded.cu that each DIR holds against this "
-                    "checkout's, in turns (phase against)")
+                    help="only time the fm_search.cu, sv_cluster.cu, "
+                    "sw_banded.cu, sw_unbanded.cu and sv_combine.cu that "
+                    "each DIR holds against this checkout's, in turns "
+                    "(phase against)")
     ap.add_argument("--ablate", nargs="+", metavar="DIR",
                     help="with --against or alone: more such sources, "
                     "timed in turns but not held to the twins (a kernel "
@@ -2303,7 +2693,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
 
-    from speedseq_tpu_torch.ops import fm_search, sv_cluster, sw_banded
+    from speedseq_tpu_torch.ops import (fm_search, sv_cluster, sv_combine,
+                                        sw_banded, sw_unbanded)
     from speedseq_tpu_torch.utils import synth
 
     smi = nvidia_smi("name,power.limit")
@@ -2316,7 +2707,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    mods = (sw_banded, sv_cluster, fm_search)
+    mods = (sw_banded, sv_cluster, fm_search, sw_unbanded, sv_combine)
     with ThreadPoolExecutor(len(mods)) as pool:    # one nvcc per source
         list(pool.map(lambda m: m.build(verbose_ptxas=True), mods))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -2362,15 +2753,20 @@ def main() -> int:
         launches["fm_smem"] = fm_launches["fm_smem"]
         launches["fm_sa_walk"] = walk_launches["fm_sa_walk"]
         phase_realign(work, fasta)
-        phase_var(work, args)
-        phase_somatic(work, args)
-        sv_launches, sv_cols = phase_sv(work, args)
+        launches["sw_unbanded_score"], var_call = phase_var(work, args)
+        som_launches = phase_somatic(work, args)
+        sv_launches, sv_cols, sv_calls = phase_sv(work, args)
         phase_multi(work, args, smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     records["sv_cluster"] = phase_sv_kernel(sv_cols, args, clock_mhz * 1e6)
     launches.update(sv_launches)
-    phase_sv_combine(args)
+    pile_calls = phase_sv_combine(args)
+    records["sw_unbanded_score"] = phase_unbanded_kernel(
+        var_call, args, clock_mhz * 1e6, props.multi_processor_count)
+    records["sw_unbanded_score"]["launches_somatic"] = som_launches
+    records["sv_combine_logsum"] = phase_combine_kernel(
+        sv_calls, pile_calls, clock_mhz * 1e6, props.multi_processor_count)
 
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -2,11 +2,11 @@
 
 Counterpart of speedseq_tpu/align/sw.py.  The banded wrappers
 (``banded_sw_pallas`` / ``banded_sw_score_pallas``) dispatch by the
-tensors' device through ops/sw_banded.py: the CUDA kernel for a CUDA
-tensor, the plain twin for a CPU tensor.  The kernels take any N (one warp
-per alignment, bounds-checked), so nothing is padded.  The unbanded
-score-only ``banded_sw_score`` (var's haplotype scorer) is torch tensor
-code on either device.  Scoring follows bwa defaults (match 1, mismatch 4,
+tensors' device through ops/sw_banded.py, the unbanded score-only
+``banded_sw_score`` (var's haplotype scorer) through ops/sw_unbanded.py:
+the CUDA kernel for a CUDA tensor, the plain twin for a CPU tensor.  The
+kernels take any N (one warp per alignment, bounds-checked), so nothing is
+padded.  Scoring follows bwa defaults (match 1, mismatch 4,
 gap open 6, gap extend 1).
 """
 
@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import sw_banded
+from ..ops import sw_banded, sw_unbanded
 
 
 class SWParams(NamedTuple):
@@ -68,66 +68,18 @@ def banded_sw_score_pallas(query, qlen, ref,
     return SWScore(*sw_banded.sw_score(query, qlen, ref, params=tuple(params)))
 
 
-NEG = -(10**6)
-
-
 def banded_sw_score(query: torch.Tensor, qlen: torch.Tensor,
                     ref: torch.Tensor,
                     params: SWParams = SWParams()) -> SWScore:
-    """Unbanded score-only local SW, one loop step per query row on
-    (N, Lr + 1) int32 tensors (the counterpart of the JAX package's XLA
-    ``banded_sw_score``; var's haplotype scorer calls it).
+    """Unbanded score-only local SW (the counterpart of the JAX package's
+    XLA ``banded_sw_score``; var's haplotype scorer calls it), in one
+    launch of the hand kernel on a CUDA tensor, its plain twin on a CPU
+    tensor (ops/sw_unbanded.py).
 
     query (N, Lq) and ref (N, Lr) are base codes (4 = N / padding, which
-    scores -1 against anything), qlen (N,) the live query length.  Within a
-    row the deletion state is an exclusive prefix max, taken with
-    ``torch.cummax`` over keys ``g * Lr + j`` (exact in int32).  The best
-    cell is the first maximum in row-major order: a row's maximum replaces
-    the running best only when strictly larger, and ``torch.max`` along a
-    row returns the first maximal column."""
-    N, Lq = query.shape
-    Lr = ref.shape[1]
-    dev = query.device
-    go, ge = params.gap_open, params.gap_ext
-    oe = go + ge
-    query = query.to(torch.int32)
-    qlen = qlen.to(torch.int32)
-    ref = ref.to(torch.int32)
-    ecol = torch.arange(Lr, dtype=torch.int32, device=dev)[None, :]
-    ref_ok = ref < 4
-    zcol = torch.zeros((N, 1), dtype=torch.int32, device=dev)
-    negcol = torch.full((N, 1), NEG, dtype=torch.int32, device=dev)
-    exstart = torch.full((N, 1), -1, dtype=torch.int32, device=dev)
-    H = torch.zeros((N, Lr + 1), dtype=torch.int32, device=dev)
-    V = torch.full((N, Lr + 1), NEG, dtype=torch.int32, device=dev)
-    bs = torch.zeros(N, dtype=torch.int32, device=dev)
-    bq, br, gs, gr = (torch.zeros_like(bs) for _ in range(4))
-    for i in range(Lq):
-        qc = query[:, i:i + 1]
-        sub = torch.where(
-            (qc < 4) & ref_ok,
-            torch.where(qc == ref, params.match, -params.mismatch),
-            -1).to(torch.int32)
-        diag = sub + H[:, :-1]
-        Vr = torch.maximum(V[:, 1:] - ge, H[:, 1:] - oe)
-        Ht = torch.clamp_min(torch.maximum(diag, Vr), 0)
-        run = torch.cummax((Ht + ge * ecol) * Lr + ecol, dim=1).values
-        run_ex = torch.cat([exstart, run[:, :-1]], dim=1)
-        gmax = torch.where(run_ex >= 0,
-                           torch.div(run_ex, Lr, rounding_mode="floor"), NEG)
-        Hr = torch.maximum(Ht, gmax - go - ge * ecol)
-        valid = (i < qlen)[:, None]
-        Hr = torch.where(valid, Hr, 0)
-        Vr = torch.where(valid, Vr, NEG)
-        rowmax, rowmax_j = torch.max(Hr, dim=1)
-        rowmax_j = rowmax_j.to(torch.int32) + 1
-        better = rowmax > bs
-        bs = torch.where(better, rowmax, bs)
-        bq = torch.where(better, i + 1, bq)
-        br = torch.where(better, rowmax_j, br)
-        last = qlen == i + 1
-        gs = torch.where(last, rowmax, gs)
-        gr = torch.where(last, rowmax_j, gr)
-        H = torch.cat([zcol, Hr], dim=1)
-        V = torch.cat([negcol, Vr], dim=1)
-    return SWScore(score=bs, qend=bq, rend=br, gscore=gs, grend=gr)
+    scores -1 against anything), qlen (N,) the live query length; the
+    kernel takes Lq <= Lr <= 1024 and raises on any other CUDA shape, the
+    twin takes any.  The best cell is the first maximum in row-major
+    order."""
+    return SWScore(*sw_unbanded.sw_score_unbanded(query, qlen, ref,
+                                                  params=tuple(params)))

@@ -4,14 +4,15 @@ binning, GC correction and mean-shift partition.
 
 Ported from the JAX package's ``sv/device.py``.  The cluster sweep, a
 serial scan with one step per evidence row, is the hand CUDA kernel of
-``ops/sv_cluster.py``; everything else is tensor code.  Where float32
-summation order would decide an integer (a curve's argmax, a CI, a
-segment boundary), the sum is taken in a fixed order or in float64, so
-the card and the CPU agree:
+``ops/sv_cluster.py``, and each cluster's sum of member log curves is
+the hand kernel of ``ops/sv_combine.py``; everything else is tensor
+code.  Where float32 summation order would decide an integer (a curve's
+argmax, a CI, a segment boundary), the sum is taken in a fixed order or
+in float64, so the card and the CPU agree:
 
 - each cluster's log-product is summed over its member rows in row order
-  (a loop over member rank), the order of the reference's float32
-  ``segment_sum`` on the CPU;
+  (the kernel's serial loop, the twin's loop over member rank), the order
+  of the reference's float32 ``segment_sum`` on the CPU;
 - curve normalisers, the 95 % mass cumsum and the mean-shift gradient are
   taken in float64 (the gradient as an antisymmetric pair sum, exactly 0
   on a flat profile);
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import sv_cluster
+from ..ops import sv_cluster, sv_combine
 from ..utils.metrics import metrics
 
 # svtype codes inside the SVTyper program
@@ -72,29 +73,15 @@ class CombinedClusters(NamedTuple):
     nz: Tuple[np.ndarray, np.ndarray]      # (C, 2) live curve window
 
 
-def _combine(lo, hi, start, clen, curves, order, first, n_active, trim,
-             W: int):
+def _combine(lo, hi, start, clen, curves, first, sizes, trim, W: int):
     """Per-cluster log-product of member curves over the union support,
     then pos / CI / CI95 (the JAX package's ``_combine_jit``).  Returns
     (prob (C, W) float32, ints (C, 7) int32 = pos, CI, CI95, nz)."""
     dev = lo.device
-    C = lo.shape[0]
-    D = curves.shape[1]
     col = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
-    log_eps = torch.log(eps)
-    acc = torch.zeros((C, W), dtype=torch.float32, device=dev)
-    # member rank r of every cluster with more than r members, in row
-    # order: clusters sorted by size, so the live ones are a prefix
-    for r, k in enumerate(n_active):
-        cl = order[:k]
-        rows = first[cl] + r
-        rel = col - (start[rows] - lo[cl])[:, None]
-        inside = (rel >= 0) & (rel < clen[rows][:, None])
-        vals = torch.gather(curves[rows], 1, rel.clamp(0, D - 1).long())
-        logrow = torch.where(inside, torch.log(torch.maximum(vals, eps)),
-                             log_eps)
-        acc[cl] = acc[cl] + logrow
+    # each cluster's member log curves summed in row order: one launch of
+    # the hand kernel on cuda, the member-rank loop on the CPU
+    acc = sv_combine.combine_logsum(first, sizes, lo, start, clen, curves, W)
     width = torch.clamp_min(hi - lo, 1)
     live_col = col < width[:, None]
     acc = torch.where(live_col, acc, -torch.inf)
@@ -152,20 +139,16 @@ def cluster_and_combine(
         lo2, hi2 = sv_cluster.cluster_extents(cids, s2, e2, C)
         sizes = torch.bincount(cids.long(), minlength=C)
         head = torch.stack([(hi1 - lo1).max(), (hi2 - lo2).max()])
-        sizes_h, head_h = sizes.cpu().numpy(), head.cpu().numpy()
+        head_h = head.cpu().numpy()
     with metrics.timer("sv.cluster_combine"):
         W = _pow2(int(max(head_h.max(), 8)), 16)
         first = torch.cumsum(sizes, 0) - sizes
-        # stable: equal sizes keep cluster order
-        order = torch.argsort(-sizes, stable=True)
-        n_active = [int((sizes_h > r).sum())
-                    for r in range(int(sizes_h.max()))]
         sides = []
         for lo, hi, s, ln, cur in ((lo1, hi1, s1, l1, curves1),
                                    (lo2, hi2, s2, l2, curves2)):
             cur_t = torch.as_tensor(np.asarray(cur, np.float32), device=dev)
-            prob, ints = _combine(lo, hi, s, ln, cur_t, order, first,
-                                  n_active, trim, W)
+            prob, ints = _combine(lo, hi, s, ln, cur_t, first, sizes, trim,
+                                  W)
             sides.append((prob.cpu().numpy(), ints.cpu().numpy()))
         cids_h = cids.cpu().numpy()
     (p1, i1), (p2, i2) = sides

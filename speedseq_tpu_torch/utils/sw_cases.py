@@ -30,11 +30,16 @@ def sw_edge_cases(n: int, Lq: int, Lr: int = 256, seed: int = 0):
         r = ref[lane]
         off = int(rng.integers(8, 44))
         L = Lq
+        # bases of an exact placement the window holds: fewer than L in a
+        # narrow window, where picks past them are dropped (the draws stay
+        # those of a wide window)
+        fit = min(L, Lr - off)
         if kind == 0:                       # exact
             q = r[off:off + L]
         elif kind == 1:                     # mismatches
             q = r[off:off + L].copy()
             at = rng.choice(L, size=max(1, L // 25), replace=False)
+            at = at[at < fit]
             q[at] = (q[at] + 1 + rng.integers(0, 3, len(at))) % 4
         elif kind == 2:                     # 3-bp insertion
             cut = L // 2
@@ -48,9 +53,11 @@ def sw_edge_cases(n: int, Lq: int, Lr: int = 256, seed: int = 0):
             q = np.concatenate([r[off:off + cut], r[off + cut + 70:]])
         elif kind == 5:                     # N bases in the query
             q = r[off:off + L].copy()
-            q[rng.choice(L, size=4, replace=False)] = 4
+            at = rng.choice(L, size=4, replace=False)
+            q[at[at < fit]] = 4
         elif kind == 6:                     # N bases in the window
-            r[off + rng.choice(L, size=4, replace=False)] = 4
+            at = rng.choice(L, size=4, replace=False)
+            r[off + at[at < fit]] = 4
             q = r[off:off + L]
         elif kind == 7:                     # qlen < Lq
             L = int(rng.integers(L // 3, L - 1))

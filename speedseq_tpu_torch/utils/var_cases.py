@@ -5,6 +5,10 @@
   192 = 150 + 2 × 16 rounded up to 64) from the banded kernels' edge
   cases (N bases, qlen < Lq, qlen = 0, equal placements, long gaps) plus
   two-letter random lanes, where equal row maxima are common.
+- ``unbanded_lanes``: the same kinds at any Lq <= Lr (reads of 250 against
+  windows of 320 among them), plus codes -1, 4 and 5 in query and window,
+  qlen 0, 1 and Lq, and deletions longer than the Pallas kernels' 64-column
+  cap that the unbanded DP must take;
 - ``random_sites``: random per-site observations, qualities, samples,
   placements and strands with 1..max_alts live alleles per site.
 """
@@ -29,6 +33,36 @@ def hap_scan_lanes(seed: int):
     q2[3, :] = 4                                   # an all-N read
     return (np.concatenate([q, q2]), np.concatenate([ql, ql2]),
             np.concatenate([r, r2]))
+
+
+def unbanded_lanes(Lq: int, Lr: int, seed: int, n_edge: int = 52):
+    """(query, qlen, ref) int32 numpy arrays for the unbanded scan at
+    Lq <= Lr: ``n_edge`` edge-case lanes, 16 two-letter lanes (ties), 16
+    lanes of random codes in -1..5 with qlen -1..Lq + 1 (0, 1 and Lq among
+    them), and, where the window has room, up to 12 lanes of an exact
+    placement with 65..120 bases deleted from its middle (at bwa scoring
+    the joined halves outscore either alone where Lq / 2 > o + d e, and the
+    deletion state then decides the best cell)."""
+    q, ql, r = sw_edge_cases(n_edge, Lq, Lr, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    q2 = rng.integers(0, 2, (16, Lq)).astype(np.int32)
+    r2 = rng.integers(0, 2, (16, Lr)).astype(np.int32)
+    ql2 = rng.integers(0, Lq + 1, 16).astype(np.int32)
+    q3 = rng.integers(-1, 6, (16, Lq)).astype(np.int32)
+    r3 = rng.integers(-1, 6, (16, Lr)).astype(np.int32)
+    ql3 = rng.integers(-1, Lq + 2, 16).astype(np.int32)
+    ql3[:3] = (0, 1, Lq)
+    r3[3, :Lq] = q3[3]                   # equal codes, negative ones too
+    parts = [(q, ql, r), (q2, ql2, r2), (q3, ql3, r3)]
+    cut = Lq // 2
+    dels = [d for d in range(65, 121, 5) if Lq + d <= Lr - 4]
+    if dels:
+        r4 = rng.integers(0, 4, (len(dels), Lr)).astype(np.int32)
+        q4 = np.stack([np.concatenate([r4[k, 2:2 + cut],
+                                       r4[k, 2 + cut + d:2 + Lq + d]])
+                       for k, d in enumerate(dels)]).astype(np.int32)
+        parts.append((q4, np.full(len(dels), Lq, np.int32), r4))
+    return tuple(np.concatenate(a) for a in zip(*parts))
 
 
 def random_sites(seed: int, S: int, R: int, n_samples: int,

@@ -182,6 +182,124 @@ def test_hap_scan_cuda_matches_cpu(seed):
     assert int(torch.argmax(ties, dim=1)) == 1
 
 
+@pytest.mark.parametrize("Lq,Lr,params", [
+    (150, 192, BWA), (250, 320, BWA), (300, 1024, BWA), (150, 200, BWA),
+    (250, 320, CHEAP_GAP), (180, 256, BWA)],
+    ids=["150x192", "250x320", "300x1024", "150x200-pad",
+         "250x320-cheap-gap", "180x256-long-deletions"])
+def test_unbanded_kernel_matches_twin(Lq, Lr, params):
+    """ssq_sw_unbanded_score against its twin on the card, all five
+    outputs bit-equal: var's shape (150 x 192), 250 bp reads (250 x 320),
+    the widest window, a width with padding columns, cheap gaps, and
+    deletions past the Pallas cap (utils/var_cases.unbanded_lanes)."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import unbanded_lanes
+
+    q, ql, r = (torch.from_numpy(a).cuda()
+                for a in unbanded_lanes(Lq, Lr, seed=Lq + Lr))
+    before = sw_unbanded.LAUNCHES["sw_unbanded_score"]
+    got = sw_unbanded.sw_score_unbanded(q, ql, r, params)
+    torch.cuda.synchronize()
+    assert sw_unbanded.LAUNCHES["sw_unbanded_score"] == before + 1
+    want = sw_unbanded.sw_score_unbanded_plain(q, ql, r, params)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_unbanded_kernel_from_four_threads():
+    """Four host threads launching the haplotype scan at once (var -t 4)
+    give the outputs of one thread, each call one launch."""
+    _need_card()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from speedseq_tpu_torch.align.sw import banded_sw_score
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import hap_scan_lanes
+
+    lanes = [[torch.from_numpy(a).cuda() for a in hap_scan_lanes(seed)]
+             for seed in range(8)]
+    one = [[t.cpu() for t in banded_sw_score(*x)] for x in lanes]
+    before = sw_unbanded.LAUNCHES["sw_unbanded_score"]
+    with ThreadPoolExecutor(4) as pool:
+        four = list(pool.map(
+            lambda x: [t.cpu() for t in banded_sw_score(*x)], lanes * 4))
+    assert sw_unbanded.LAUNCHES["sw_unbanded_score"] == before + 32
+    for k, got in enumerate(four):
+        for a, b in zip(got, one[k % 8]):
+            assert torch.equal(a, b)
+
+
+def test_unbanded_kernel_refuses_what_it_cannot_take():
+    """On a CUDA tensor the wrapper raises for Lr > 1024 and for Lq > Lr,
+    launching nothing (no fallback to the twin), and var's call_window on
+    cuda fails with DeviceError on a window of 1,000 bp reads (Lr 1088),
+    which the CPU twin takes (tests/test_torch_var.py)."""
+    _need_card()
+    from speedseq_tpu_torch.formats.sam import SAMRecord
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.var import caller
+    from speedseq_tpu_torch.var.pileup import build_pileup
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")
+    before = dict(sw_unbanded.LAUNCHES)
+    with pytest.raises(ValueError, match="Lr <= 1024"):
+        sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 1025))
+    with pytest.raises(ValueError, match="Lq <= Lr"):
+        sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 149))
+    assert sw_unbanded.LAUNCHES == before
+    # tests/test_torch_var.py's long-reads-mnp window
+    g = np.random.default_rng(13).integers(0, 4, 1000).astype(np.uint8)
+    ref = "".join("ACGT"[c] for c in g)
+    alt = (ref[:500] + "".join("ACGT"[(c + 1) % 4] for c in g[500:502])
+           + ref[502:])
+    recs = [(SAMRecord(qname=f"r{i}", flag=16 if i % 2 else 0, tid=0,
+                       pos=0, mapq=60, cigar=[(0, 1000)], mtid=-1, mpos=-1,
+                       tlen=0, seq=alt if i < 6 else ref, qual="I" * 1000),
+             0) for i in range(12)]
+    with pytest.raises(caller.DeviceError, match="Lr <= 1024"):
+        caller.call_window(g, build_pileup(recs, 0, len(g)), 1,
+                           caller.CallerConfig(min_alternate_fraction=0.1),
+                           device="cuda")
+
+
+@pytest.mark.parametrize("kind,n,trim", [
+    ("pile", 4096, 0.0), ("random", 400, 0.0), ("random", 400, 0.01)],
+    ids=["pile-4096", "random-400", "random-400-trim"])
+def test_combine_kernel_matches_twin(kind, n, trim, monkeypatch):
+    """ssq_sv_combine_logsum against its twin on the card, bit-equal, on
+    the inputs cluster_and_combine gives it (one launch a side), and the
+    whole combination on cuda equal to cpu (ints equal, curves within
+    2e-5)."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sv_combine
+    from speedseq_tpu_torch.sv import device as sd
+    from speedseq_tpu_torch.sv.cluster import evidence_columns
+
+    rng = np.random.default_rng(n)
+    ev = (sv_cases.pile_evidence(rng, n) if kind == "pile"
+          else sv_cases.random_evidence(rng, n))
+    cols = evidence_columns(ev)[1:]
+    seen, real = [], sv_combine.combine_logsum
+    monkeypatch.setattr(sv_combine, "combine_logsum",
+                        lambda *a: (seen.append(a), real(*a))[1])
+    before = sv_combine.LAUNCHES["sv_combine_logsum"]
+    gpu = sd.cluster_and_combine(*cols, trim, device="cuda")
+    assert sv_combine.LAUNCHES["sv_combine_logsum"] == before + 2
+    monkeypatch.undo()
+    for a in seen:
+        got = real(*a)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           sv_combine.sv_combine_logsum_plain(*a).cpu())
+    cpu = sd.cluster_and_combine(*cols, trim, device="cpu")
+    for k in (0, 1):
+        for f in ("pos", "ci", "ci95", "nz"):
+            assert np.array_equal(getattr(gpu, f)[k], getattr(cpu, f)[k])
+        np.testing.assert_allclose(gpu.prob[k], cpu.prob[k], atol=2e-5,
+                                   rtol=0)
+
+
 @pytest.mark.parametrize("n_samples,pooled", [(1, False), (3, False),
                                               (2, True)])
 def test_genotype_sites_cuda_matches_cpu(n_samples, pooled):
@@ -410,6 +528,68 @@ def test_somatic_cuda_matches_cpu(tumor_normal_bams):
     assert records_mismatch(recs["cpu"], recs["cuda"]) is None
     with open(d / "som_cpu.ped") as a, open(d / "som_cuda.ped") as b:
         assert a.read() == b.read()
+
+
+def _var_case_bam(d, device):
+    """A random 20 kbp genome whose diploid sample carries SNVs, 1-8 bp
+    indels and SNV pairs 1-2 bp apart (the groups the haplotype scan
+    scores, as tests/test_torch_var.py plants them), 25x of 100 bp pairs
+    aligned by the port on ``device``; returns (fasta, bam)."""
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.formats.fasta import decode_bases
+    from speedseq_tpu_torch.utils import sim
+
+    rng = np.random.default_rng(21)
+    g = rng.integers(0, 4, 20_000).astype(np.uint8)
+    fa = str(d / "v.fa")
+    s = decode_bases(g).decode()
+    with open(fa, "w") as fh:
+        fh.write(">chrV\n" + "\n".join(s[i:i + 60]
+                                       for i in range(0, len(s), 60)) + "\n")
+    hap, variants, coord = sim.mutate(g, rng, snv_rate=0.003,
+                                      indel_rate=0.001)
+    taken = np.array([p for p, _, _ in variants])
+    for i, pos in enumerate(range(400, 19600, 800)):
+        h = np.searchsorted(coord, pos)
+        gap = 1 + i % 2
+        if np.abs(taken - pos).min() > 12 and coord[h + gap] == pos + gap:
+            for k in (h, h + gap):
+                hap[k] = (hap[k] + 1) % 4
+    names, s1, q1, s2, q2, _ = sim.simulate_pairs(
+        g, 2500, read_len=100, seed=11, diploid_genome=hap, coord_map=coord)
+    sim.to_fastq(str(d / "v1.fq"), str(d / "v2.fq"), names, s1, q1, s2, q2)
+    align_fastq(fa, str(d / "v1.fq"), str(d / "v2.fq"),
+                out_prefix=str(d / "v"),
+                config=AlignConfig(batch_size=512, rg_string=(
+                    "@RG\\tID:v\\tSM:v")), device=device)
+    return fa, str(d / "v.bam")
+
+
+def test_var_on_cuda_launches_the_unbanded_kernel(tmp_path):
+    """run_var on cuda runs the haplotype scan through
+    ssq_sw_unbanded_score (one launch a scan call), with the records of
+    the CPU run."""
+    _need_card()
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.metrics import metrics
+    from speedseq_tpu_torch.utils.somatic_cases import records_mismatch
+    from speedseq_tpu_torch.var.engine import run_var
+
+    fa, bam = _var_case_bam(tmp_path, "cuda")
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        metrics.reset()
+        sw_unbanded.reset_launches()
+        out = str(tmp_path / f"var_{dev}.vcf.gz")
+        run_var(fa, [bam], out, device=dev)
+        recs[dev] = read_vcf(out)[1]
+        calls = metrics.snapshot().get(f"var.hap_scan_calls.{dev}", 0)
+        launches = sw_unbanded.LAUNCHES["sw_unbanded_score"]
+        assert launches == (calls if dev == "cuda" else 0)
+    assert launches > 0
+    assert len(recs["cuda"]) > 0
+    assert records_mismatch(recs["cpu"], recs["cuda"]) is None
 
 
 def test_realign_cuda_matches_cpu(tumor_normal_bams):

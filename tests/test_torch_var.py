@@ -114,6 +114,11 @@ def test_banded_sw_score_matches_jax(seed):
 
 GSEQ = "ACGTACGTACGTACGTACGT"
 DSEQ = "ACGTACGTACGTTGCATGCAACGTACGTACGT"
+# 1,000 bp reads: the haplotype scan's window is Lr = 1088, past the CUDA
+# kernel's 1024 (ops/sw_unbanded.py:MAX_LR)
+LSEQ = "".join("ACGT"[c] for c in
+               np.random.default_rng(13).integers(0, 4, 1000))
+NEXT = dict(zip("ACGT", "CGTA"))
 
 
 def _read(name, seq, pos=0, sample=0, flag=0, qch="I", cigar=None):
@@ -218,6 +223,9 @@ CASES = {
                                 else {}, qch="?"), 1, F01, 1),
     "numeric-indel-snp": (DSEQ, _deletion_reads(snp="A", qch="?"), 1, F01,
                           1),
+    "long-reads-mnp": (LSEQ, _over(LSEQ, lambda i: {
+        500: NEXT[LSEQ[500]], 501: NEXT[LSEQ[501]]} if i < 6 else {}), 1,
+        F01, 1),
 }
 
 
@@ -250,6 +258,25 @@ def test_call_window_matches_jax(case):
                                           err_msg=f)
         np.testing.assert_allclose(a.gl, b.gl, atol=1e-4, rtol=0)
         assert abs(a.qual - b.qual) <= 1e-3
+
+
+def test_long_read_window_scans_past_the_kernel_width(monkeypatch):
+    """A window of 1,000 bp reads scans its haplotypes at Lr = 1088: on the
+    CPU the twin takes that width (its calls equal the JAX package's in
+    test_call_window_matches_jax[long-reads-mnp]); on cuda the kernel's
+    shape check raises and the run fails (tests/test_torch_gpu.py)."""
+    from speedseq_tpu_torch.align import sw as tsw
+
+    widths, real = [], tsw.banded_sw_score
+    monkeypatch.setattr(tsw, "banded_sw_score", lambda q, ql, r, *a: (
+        widths.append(r.shape[1]), real(q, ql, r, *a))[1])
+    gseq, reads, n_samples, kw, n_calls = CASES["long-reads-mnp"]
+    g = np.array(["ACGT".index(c) for c in gseq], np.uint8)
+    got = tcaller.call_window(
+        g, _pileup(tbuild_pileup, TSAMRecord, reads, len(g)), n_samples,
+        tcaller.CallerConfig(**kw), device="cpu")
+    assert widths == [1088] and len(got) == n_calls
+    assert got[0].alts == ["".join(NEXT[b] for b in LSEQ[500:502])]
 
 
 # ---------------------------------------------------------------- end to end
