@@ -21,7 +21,8 @@ x 256, at 768 x 150 x 256, 768 x 150 x 254 and 32,768 x 151 x 256,
 sw_cigar at the main path's 16,384, 1,024 and 256 x 151 x 256, the same
 lane counts x 150 x 256 and on the inputs one batch of the align cell
 gives it; sw_unbanded_score on hap_scan_lanes, on 280 lanes of var's 150
-x 192 and on 250 x 320; sv_combine_logsum on both sides of the SV_PILE
+x 192 and on 250 x 320 (the narrow kernel, with each kernel's SASS hash
+by library); sv_combine_logsum on both sides of the SV_PILE
 pile and of 2,000 rows of random evidence; with the SASS loops of both
 SW kernels (registers, shared bytes, and each row loop's instructions,
 shuffles, loads and stores) and the device time alone and per kernel of
@@ -66,6 +67,15 @@ Phases, each printing one JSON line:
   kernels  (align batch) sw_cigar on the inputs one batch of the align
            cell gives each of its three launches (captured from
            align_fastq), against its twin (bit-equal), device time
+  unfused  the unfused alignment API on cuda: read 1 of one align-cell
+           batch (8,192 reads of 150 bp) through align_candidates
+           (n_chains 4, the fm phase's FM index: one launch of
+           sw_unbanded_cigar at 32,768 lanes x 150 x 254), then
+           select_alignments and assemble_records on the host: walls,
+           >= 95 % mapped and >= 95 % within 12 bp of truth, the first
+           1,024 reads' candidates equal on cpu, and the kernel against
+           its twin (bit-equal) at that launch: wrapper and device ms,
+           the twin's ms, the bound
   realign  the align phase's BAM (65,536 pairs) through the port's CLI
            ``realign`` on cuda (batch 8,192, the reference's cache cleared
            first): wall, reads/s, extract / device-step / emit times, the
@@ -81,7 +91,10 @@ Phases, each printing one JSON line:
            each), sw_unbanded_score launched once a scan call, and runs
            over the first 200 kb (four windows) on cpu, on cuda and on
            cuda with 4 threads that must give the same records (the cuda
-           run's largest scan call kept for the kernels phase)
+           run's largest scan call kept for the kernels phase); then var
+           through the CLI on cuda and on cpu over a BAM of 1,000 bp reads
+           (20x over 20 kb, SNV pairs on one haplotype): windows of Lr =
+           1088, the wide scan kernel launched, records equal
   somatic  one 1 Mbp contig; germline heterozygous SNVs (0.1 %) in both
            samples, somatic heterozygous SNVs (0.02 %) in the tumor only;
            normal 100,000 pairs (30x) and tumor 200,000 pairs (60x) of
@@ -123,8 +136,10 @@ Phases, each printing one JSON line:
            launch a side; its inputs kept for the kernels phase), timed,
            against cpu (the twin's member-rank loop, one step per member)
   kernels  sw_unbanded_score against its twin (bit-equal) on the var
-           run's largest scan call, on hap_scan_lanes and on 250 bp reads
-           (250 x 320); sv_combine_logsum against its twin (bit-equal) on
+           run's largest scan call, on hap_scan_lanes, on 250 bp reads
+           (250 x 320) and, through the wide kernel, on 1,000 and 2,000 bp
+           reads (1000 x 1088, 2000 x 2112); sv_combine_logsum against
+           its twin (bit-equal) on
            both sides of the sv run's cluster pass and of the pile, with
            index_add_ of the materialised log rows as the library
            yardstick
@@ -167,6 +182,10 @@ SV_BP, SV_PAIRS = (1_500_000, 500_000), 200_000   # 30x of 2 × 150 bp
 SV_SLACK = 150                     # breakpoint bar of tests/test_sv.py:126
 SV_PILE = 4_096                    # members of the combine phase's cluster
 FM_READS = 8_192                   # fm kernels: a batch's reads x 19 anchors
+UNFUSED_READS = 8_192              # unfused: read 1 of one align-cell batch
+UNFUSED_CHAINS = 4                 # align_candidates' n_chains (JAX default)
+UNFUSED_PARITY = 1_024             # unfused: reads held cuda against cpu
+VAR_LONG_BP = 20_000               # var: a contig for 1,000 bp reads at 20x
 FM_BIG_HALF = 1 << 27              # beyond L2: FMD index of a random half-text
 
 
@@ -1083,7 +1102,10 @@ def _against_sv(work, args, earlier):
 def _against_unbanded(args, earlier):
     """The unbanded scan of each library in turns on hap_scan_lanes
     (150 x 192), on 280 lanes of var's shape (about one var call) and on
-    250 bp reads (250 x 320), with the device time (phase_against)."""
+    250 bp reads (250 x 320), with the device time, and the SASS hash of
+    each library's scan kernels (phase_against)."""
+    import re
+
     import torch
 
     from speedseq_tpu_torch.ops import sw_unbanded
@@ -1091,6 +1113,14 @@ def _against_unbanded(args, earlier):
                                                     unbanded_lanes)
 
     libs = earlier + [("this", sw_unbanded._load(), True, [])]
+    # each kernel's SASS hash by its name and template width, per library
+    # (equal hashes: identical code)
+    short = lambda fn: "".join(g or "" for g in re.search(
+        r"\d(sw_unbanded_(?:wide_|cigar_)?kernel)(ILi\d+E)?", fn).groups())
+    emit({"phase": "against", "kernel": "sw_unbanded_score", "sass_sha1": {
+        name: {short(fn): info["sha1"] for fn, info in
+               _sass_loops(lib._name, "sw_unbanded").items()}
+        for name, lib, _, _ in libs}})
     stream = torch.cuda.current_stream().cuda_stream
     for label, host in (
             ("hap_scan_lanes, 150 x 192", hap_scan_lanes(args.seed)),
@@ -1463,6 +1493,162 @@ def phase_align(work, fasta, genome, args, seed_mode="hash"):
     return launches
 
 
+def _cigar_unbanded_bound(q, ql, r, clock_hz, n_sms, max_ops=48):
+    """The least time of the traceback DP on these inputs: the rows it
+    runs x Lr cells x ops/sw_unbanded.py:OPS_PER_CELL_CIGAR int32
+    instructions, or its bytes (query, qlen and window read once; eight
+    int32 outputs, the int8 ops and the int32 lengths written)."""
+    import numpy as np
+
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    q, ql, r = (a.cpu().numpy() for a in (q, ql, r))
+    n, Lq = q.shape
+    rows = np.clip(ql.astype(np.int64), 0, Lq).sum()
+    return _ops_bound(
+        float(rows) * r.shape[1] * sw_unbanded.OPS_PER_CELL_CIGAR, 0,
+        4.0 * (q.size + ql.size + r.size) + n * (8 * 4 + max_ops * 5),
+        clock_hz, n_sms)
+
+
+def phase_unfused(work, fasta, genome, args, clock_hz, n_sms):
+    """The unfused alignment API on cuda at the align cell's width: read 1
+    of one align-cell batch (UNFUSED_READS reads of 150 bp) through
+    ``align_candidates`` (n_chains 4: one launch of ssq_sw_unbanded_cigar
+    at 32,768 lanes x 150 x 254) on the fm phase's FM index, then
+    ``select_alignments`` and ``assemble_records`` on the host: walls,
+    the launch count, >= 95 % mapped and >= 95 % within 12 bp of truth,
+    the records; the first UNFUSED_PARITY reads' candidates equal to a
+    run on cpu; the kernel against its twin on the card at the captured
+    launch (bit-equal), wrapper and device ms, the twin's ms and the
+    bound.  Returns (the kernels-line record, the launches of the run)."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.align import core, pipeline
+    from speedseq_tpu_torch.align.markdup import StreamDupMarker
+    from speedseq_tpu_torch.align.pairing import InsertDistro
+    from speedseq_tpu_torch.formats.sam import FSUPPLEMENTARY, FUNMAP
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils import synth
+
+    rd = synth.simulate(genome, PAIRS, read_len=150, seed=args.seed,
+                        kill_frac=0.01)
+    B = UNFUSED_READS
+    reads_np = rd.seq1[:B].astype(np.int32)
+    lens_np = np.full(B, 150, np.int32)
+    idx, fm, _ = pipeline._load_fm(fasta, torch.device("cuda"), "fm")
+    reads = torch.from_numpy(reads_np).cuda()
+    lens = torch.from_numpy(lens_np).cuda()
+    core.align_candidates(fm, reads[:64], lens[:64],
+                          n_chains=UNFUSED_CHAINS)         # warm-up
+    captured = {}
+
+    def keep(query, qlen, ref, params=(1, 4, 6, 1), max_ops=48):
+        captured["args"] = tuple(t.clone() for t in (query, qlen, ref))
+
+    torch.cuda.synchronize()
+    sw_unbanded.reset_launches()
+    t0 = time.perf_counter()
+    with _spying(sw_unbanded, "sw_cigar_unbanded", keep):
+        cand = core.align_candidates(fm, reads, lens,
+                                     n_chains=UNFUSED_CHAINS)
+    torch.cuda.synchronize()
+    cand_s = time.perf_counter() - t0
+    launches = sw_unbanded.LAUNCHES["sw_unbanded_cigar"]
+    check(launches == 1, f"sw_unbanded_cigar launched {launches} times in "
+          f"one align_candidates call, not once")
+    q, ql, r = captured["args"]
+    check(tuple(q.shape) + (r.shape[1],) == (B * UNFUSED_CHAINS, 150, 254),
+          f"align_candidates launched at {tuple(q.shape)} x {r.shape[1]}")
+
+    t0 = time.perf_counter()
+    sel = core.select_alignments(cand, reads_np, lens_np)
+    select_s = time.perf_counter() - t0
+    offsets = np.asarray(idx.offsets, np.int64)
+    truth = offsets[rd.tid1[:B]] + rd.pos1[:B]
+    mapped = [k for k, (p, _) in enumerate(sel) if p.aligned]
+    good = sum(abs(sel[k][0].pos - int(truth[k])) <= 12 for k in mapped)
+    mapped_frac, acc = len(mapped) / B, good / max(1, len(mapped))
+
+    rc = {0: "T", 1: "G", 2: "C", 3: "A"}
+    rows = []
+    t0 = time.perf_counter()
+    for k, (prim, supp) in enumerate(sel):
+        seq = "".join("ACGTN"[min(int(c), 4)] for c in reads_np[k])
+        qual = pipeline._phred(rd.qual1[k], 150)
+        rows.append(pipeline._PairRow(
+            name=rd.names[k], seq=seq, qual=qual,
+            seq_rc="".join(rc.get(c, "N") for c in
+                           (int(x) for x in reads_np[k][::-1])),
+            qual_r=qual[::-1], aln=prim, supp=supp,
+            tid=int(idx.tid_for_pos(np.array([prim.pos]))[0])
+            if prim.aligned else -1))
+    main, splitters, discordants = pipeline.assemble_records(
+        rows, None, idx, InsertDistro(320.0, 50.0, 120, 520),
+        pipeline.AlignConfig(), marker=StreamDupMarker())
+    main.sort(key=pipeline.sort_key)
+    assemble_s = time.perf_counter() - t0
+    n_supp = sum(bool(rec.flag & FSUPPLEMENTARY) for rec in main)
+    check(len(main) == B + n_supp, f"{len(main)} records for {B} reads "
+          f"and {n_supp} supplementary pieces")
+    check(sum(not rec.flag & (FUNMAP | FSUPPLEMENTARY) for rec in main)
+          == len(mapped), "the records lost a mapped read")
+
+    # the first UNFUSED_PARITY reads on cpu: the same candidates
+    _, fm_cpu, _ = pipeline._load_fm(fasta, torch.device("cpu"), "fm")
+    P = UNFUSED_PARITY
+    t0 = time.perf_counter()
+    cpu = core.align_candidates(fm_cpu, torch.from_numpy(reads_np[:P]),
+                                torch.from_numpy(lens_np[:P]),
+                                n_chains=UNFUSED_CHAINS)
+    cpu_s = time.perf_counter() - t0
+    differ = [f for f in cpu._fields if not torch.equal(
+        getattr(cand, f)[:P].cpu(), getattr(cpu, f))]
+    check(not differ, f"align_candidates cuda vs cpu: {differ} differ")
+
+    # the kernel against its twin at the launch the run gave it
+    kern, plain = sw_unbanded.sw_cigar_unbanded, \
+        sw_unbanded.sw_cigar_unbanded_plain
+    got = [t.cpu() for t in kern(q, ql, r)]
+    torch.cuda.synchronize()
+    want = [t.cpu() for t in plain(q, ql, r)]
+    max_err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+    check(max_err == 0 and all(a.dtype == b.dtype for a, b in
+                               zip(got, want)),
+          f"sw_unbanded_cigar disagrees with its twin ({max_err})")
+    del got, want
+    ms = cuda_ms(lambda: kern(q, ql, r), reps=10)
+    device_ms = cuda_ms(lambda: kern(q, ql, r), reps=10, queued=True)
+    plain_ms = cuda_ms(lambda: plain(q, ql, r), reps=1, warmup=1)
+    torch.cuda.empty_cache()
+    bound = _cigar_unbanded_bound(q, ql, r, clock_hz, n_sms)
+    emit({"phase": "unfused", "reads": B, "read_len": 150,
+          "n_chains": UNFUSED_CHAINS, "lanes": q.shape[0], "Lq": q.shape[1],
+          "Lr": r.shape[1], "align_candidates_s": cand_s,
+          "select_alignments_s": select_s, "assemble_records_s": assemble_s,
+          "cpu_align_candidates_s": cpu_s, "parity_reads": P,
+          "parity_ok": True, "launches": launches,
+          "mapped_frac": mapped_frac, "pos_within_12bp": acc,
+          "records": len(main), "supplementary": n_supp,
+          "splitters": len(splitters), "discordants": len(discordants),
+          "kernel": {"bit_equal": True, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms, **bound}})
+    check(mapped_frac >= 0.95, f"unfused mapped fraction {mapped_frac:.4f}"
+          f" < 0.95")
+    check(acc >= 0.95, f"unfused position accuracy {acc:.4f} < 0.95")
+    rec = {"name": "sw_unbanded_cigar", "route": "cuda",
+           "source": "speedseq_tpu_torch/ops/csrc/sw_unbanded.cu",
+           "replaces": "speedseq_tpu/align/sw.py:289",
+           "launches": 0, "max_abs_err": max_err, "ms": ms,
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "library_ms": None,
+           "shape": [q.shape[0], q.shape[1], r.shape[1]]}
+    return rec, launches
+
+
 def phase_realign(work, fasta):
     """realign of the align phase's BAM through the CLI on cuda (the
     kernels' counts set to 0 just before it and read just after), then
@@ -1640,6 +1826,7 @@ def phase_var(work, args):
         with open(path, "rb") as fh:
             raw[name] = fh.read()
     why = records_mismatch(par["cpu"][0], par["cuda"][0])
+    long_reads = _var_long_reads(work, args)
 
     emit({"phase": "var", "contig_bp": VAR_BP, "pairs": VAR_PAIRS,
           "read_len": 150, "coverage": 2 * 150 * VAR_PAIRS / VAR_BP,
@@ -1665,6 +1852,7 @@ def phase_var(work, args):
           "parity_metrics": par_metrics,
           "parity_ok": why is None,
           "threads_byte_equal": raw["cuda_t4"] == raw["cuda"],
+          "long_reads": long_reads,
           "metrics": snap,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     check(recall >= 0.92, f"var recall {recall:.4f} < 0.92")
@@ -1676,6 +1864,81 @@ def phase_var(work, args):
           f"sw_unbanded_score launched {launches} times in the var run, "
           f"not once a scan call")
     return launches, scan_in["args"]
+
+
+def _var_long_reads(work, args):
+    """var through the CLI on cuda and on cpu over a BAM of 1,000 bp reads
+    (20x over a VAR_LONG_BP contig whose second haplotype carries SNV
+    pairs 1-2 bp apart, the haplotype scan's groups): its windows are Lr
+    = 1088 wide, so the wide scan kernel runs.  The records must be equal
+    and the kernel launched at a width above 1,024."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch import cli
+    from speedseq_tpu_torch.formats.bai import build_bai
+    from speedseq_tpu_torch.formats.bam import write_bam
+    from speedseq_tpu_torch.formats.fasta import decode_bases
+    from speedseq_tpu_torch.formats.sam import SAMHeader, SAMRecord
+    from speedseq_tpu_torch.formats.vcf import read_vcf
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.somatic_cases import records_mismatch
+
+    rng = np.random.default_rng(args.seed + 250)
+    g = rng.integers(0, 4, VAR_LONG_BP).astype(np.uint8)
+    hap = g.copy()
+    for k, p in enumerate(range(1500, VAR_LONG_BP - 1500, 1500)):
+        for at in (p, p + 1 + k % 2):
+            hap[at] = (hap[at] + 1 + rng.integers(0, 3)) % 4
+    fasta = os.path.join(work, "long.fa")
+    seq = decode_bases(g).decode()
+    with open(fasta, "w") as fh:
+        fh.write(">chrL\n" + "\n".join(seq[i:i + 60]
+                                       for i in range(0, len(seq), 60)) + "\n")
+    n = 20 * VAR_LONG_BP // 1000
+    starts = np.sort(rng.integers(0, VAR_LONG_BP - 1000, n))
+    recs = [SAMRecord(
+        qname=f"long{k}", flag=16 if k % 4 >= 2 else 0, tid=0, pos=int(s),
+        mapq=60, cigar=[(0, 1000)], mtid=-1, mpos=-1, tlen=0,
+        seq=decode_bases((hap if k % 2 else g)[s:s + 1000]).decode(),
+        qual="I" * 1000, tags=[("RG", "Z", "long")])
+        for k, s in enumerate(starts)]
+    bam = os.path.join(work, "long.bam")
+    write_bam(bam, SAMHeader.build([("chrL", VAR_LONG_BP)],
+                                   read_groups=["@RG\tID:long\tSM:long"]),
+              recs)
+    build_bai(bam)
+    widths, out = [], {}
+
+    def keep(query, qlen, ref, params=(1, 4, 6, 1)):
+        if query.is_cuda:
+            widths.append(ref.shape[1])
+
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(work, f"long_{dev}")
+        sw_unbanded.reset_launches()
+        t0 = time.perf_counter()
+        with _spying(sw_unbanded, "sw_score_unbanded", keep):
+            rc = cli.main(["var", "--device", dev, "-o", path, fasta, bam])
+        torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
+        check(rc == 0, f"var --device {dev} on 1,000 bp reads returned {rc}")
+        out[dev] = (read_vcf(path + ".vcf.gz")[1],
+                    sw_unbanded.LAUNCHES["sw_unbanded_score"])
+    why = records_mismatch(out["cpu"][0], out["cuda"][0])
+    res = {"contig_bp": VAR_LONG_BP, "reads": n, "read_len": 1000,
+           "records": len(out["cuda"][0]), "scan_widths": sorted(set(widths)),
+           "launches_cuda": out["cuda"][1], "launches_cpu": out["cpu"][1],
+           "wall_cuda_s": walls["cuda"], "wall_cpu_s": walls["cpu"],
+           "parity_ok": why is None}
+    check(len(out["cuda"][0]) > 0, "no records from the 1,000 bp reads")
+    check(why is None, f"var on 1,000 bp reads, cpu vs cuda: {why}")
+    check(out["cuda"][1] == len(widths) > 0 and min(widths) > 1024,
+          f"the wide scan did not run: widths {sorted(set(widths))}, "
+          f"{out['cuda'][1]} launches")
+    check(out["cpu"][1] == 0, "the cpu run launched the scan kernel")
+    return res
 
 
 def phase_somatic(work, args):
@@ -2455,10 +2718,12 @@ def _unbanded_bound(q, ql, r, clock_hz, n_sms):
 def phase_unbanded_kernel(var_call, args, clock_hz, n_sms):
     """sw_unbanded_score against its twin on the card (bit-equal) on the
     inputs of the var run's largest haplotype-scan call, on
-    utils/var_cases.hap_scan_lanes (150 x 192) and on 250 bp reads (250 x
-    320, unbanded_lanes): wrapper ms, device ms (queue filled first), the
-    twin's ms on the card, the bound.  Returns the kernels-line record (at
-    the var call's shape, the one the main path gives it)."""
+    utils/var_cases.hap_scan_lanes (150 x 192), on 250 bp reads (250 x
+    320, unbanded_lanes) and, through the wide kernel, on 1,000 and 2,000
+    bp reads (1000 x 1088, 2000 x 2112): wrapper ms, device ms (queue
+    filled first), the twin's ms on the card, the bound.  Returns the
+    kernels-line record (at the var call's shape, the one the main path
+    gives it)."""
     import torch
 
     from speedseq_tpu_torch.ops import sw_unbanded
@@ -2471,7 +2736,11 @@ def phase_unbanded_kernel(var_call, args, clock_hz, n_sms):
     for label, host in (("var call", var_call),
                         ("hap_scan_lanes", hap_scan_lanes(args.seed)),
                         ("250 bp reads", unbanded_lanes(250, 320,
-                                                        seed=args.seed))):
+                                                        seed=args.seed)),
+                        ("1,000 bp reads, wide", unbanded_lanes(
+                            1000, 1088, seed=args.seed)),
+                        ("2,000 bp reads, wide", unbanded_lanes(
+                            2000, 2112, seed=args.seed))):
         q, ql, r = (torch.as_tensor(a).cuda() for a in host)
         before = sw_unbanded.LAUNCHES["sw_unbanded_score"]
         got = [t.cpu() for t in kern(q, ql, r)]
@@ -2750,6 +3019,9 @@ def main() -> int:
         launches = phase_align(work, fasta, genome, args)
         phase_cigar_batch(work, fasta, genome, args)
         fm_launches = phase_align(work, fasta, genome, args, "fm")
+        records["sw_unbanded_cigar"], launches["sw_unbanded_cigar"] = \
+            phase_unfused(work, fasta, genome, args, clock_mhz * 1e6,
+                          props.multi_processor_count)
         launches["fm_smem"] = fm_launches["fm_smem"]
         launches["fm_sa_walk"] = walk_launches["fm_sa_walk"]
         phase_realign(work, fasta)

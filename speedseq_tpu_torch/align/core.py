@@ -8,11 +8,17 @@ the FMD index (``kidx=None``, ``seed_mode="fm"``: the ``fm_smem`` and
 ``fm_sa_walk`` kernels of ops/fm_search.py); the two banded
 Smith-Waterman kernels (ops/sw_banded.py) do the DP.  The host side (numpy
 unpacking, MAPQ) is unchanged.
+
+The unfused alignment API is here too: ``align_candidates`` (SMEM seeds,
+the sorting chainer and the unbanded traceback DP ``sw.banded_sw`` over
+every chain, on the tensors' device) and its host selection
+(``choose_candidates``, ``select_alignments``, ``finalize_alignments``:
+the JAX package's numpy code, each fetching its tensors once).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +28,7 @@ from ..index.fm import FMIndex, get_ref_window_packed
 from ..index.kmer import KmerIndex, find_seeds_hash
 from .chain import chain_seeds, chain_seeds_nms
 from .seeding import find_seeds
-from .sw import SWParams, banded_sw_pallas, banded_sw_score_pallas
+from .sw import SWParams, banded_sw, banded_sw_pallas, banded_sw_score_pallas
 
 PAD = 44  # ref-window slack each side of the chain anchor diagonal
 # windows start 16-aligned (word-gather path) so W carries +16 alignment
@@ -40,13 +46,14 @@ class Candidates(NamedTuple):
     qbeg: torch.Tensor      # (B, S) strand-frame query start
     qend: torch.Tensor      # (B, S)
     rend_pos: torch.Tensor  # (B, S) genome end pos (exclusive)
-    cigar_ops: torch.Tensor  # (B, S, MAX_OPS) int32
+    cigar_ops: torch.Tensor  # (B, S, MAX_OPS) int32 (align_candidates: int8)
     cigar_len: torch.Tensor  # (B, S, MAX_OPS) int32
     n_ops: torch.Tensor     # (B, S)
     seed_cov: torch.Tensor  # (B, S) chain weight (seed coverage)
     refwin: torch.Tensor    # (B, S, W) uint8 ref window
     rstart: torch.Tensor    # (B, S) int32 window genome start
     nm: torch.Tensor        # (B, S) int32 edit distance from the kernel
+    # (-1 = unknown: the host derives NM/MD from refwin)
 
 
 class ScoredChains(NamedTuple):
@@ -107,6 +114,47 @@ def _chains(fm: FMIndex, reads, lengths, n_chains, stride, min_seed_len,
     seeds = find_seeds(fm, reads, lengths, stride=stride,
                        min_seed_len=min_seed_len, max_hits=max_hits)
     return chain_seeds(seeds, L, k=n_chains)
+
+
+def align_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
+                     stride: int = 8, min_seed_len: int = 19,
+                     max_hits: int = 4, params: SWParams = SWParams()
+                     ) -> Candidates:
+    """The unfused forward step: SMEM seeds (``fm`` needs its FMD arrays)
+    → the sorting chainer → the unbanded traceback DP (``sw.banded_sw``,
+    one launch of ``ssq_sw_unbanded_cigar`` on cuda) of every chain's
+    strand query against its 16-aligned window of W = L + 2 PAD + 16 bases
+    (L <= 152, so W <= 256).  Returns (B, K) Candidates with nm = -1: the
+    host derives NM/MD from ``refwin``."""
+    B, L = reads.shape
+    reads = reads.to(i32)
+    seeds = find_seeds(fm, reads, lengths, stride=stride,
+                       min_seed_len=min_seed_len, max_hits=max_hits)
+    chains = chain_seeds(seeds, L, k=n_chains)
+    K = n_chains
+    W = L + 2 * PAD + 16
+    strand = chains.strand
+    queries = _strand_queries(reads, lengths, strand)
+    rstart = _window_start(chains.anchor_rpos, chains.anchor_qpos)
+    refwin = get_ref_window_packed(fm, rstart.reshape(-1), W)
+    qlen = lengths.to(i32)[:, None].expand(B, K).reshape(-1)
+    sw = banded_sw(queries, qlen, refwin.to(i32), params=params)
+    score = torch.where(chains.valid.reshape(-1), sw.score, 0).reshape(B, K)
+    return Candidates(
+        pos=(rstart.reshape(-1) + sw.rbeg).reshape(B, K),
+        strand=strand,
+        score=score,
+        qbeg=sw.qbeg.reshape(B, K),
+        qend=sw.qend.reshape(B, K),
+        rend_pos=(rstart.reshape(-1) + sw.rend).reshape(B, K),
+        cigar_ops=sw.cigar_ops.reshape(B, K, -1),
+        cigar_len=sw.cigar_len.reshape(B, K, -1),
+        n_ops=sw.n_ops.reshape(B, K),
+        seed_cov=chains.weight,
+        refwin=refwin.reshape(B, K, W),
+        rstart=rstart,
+        nm=torch.full((B, K), -1, dtype=i32, device=reads.device),
+    )
 
 
 def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
@@ -715,3 +763,368 @@ def mapq_vec(
     mapq = np.where(sub_n > 0, mapq - pen, mapq)
     mapq = np.where((sub >= score) | (score == 0), 0, mapq)
     return np.clip(mapq, 0, 60).astype(np.int32)
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (any device) or array as a numpy array."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class Selection(NamedTuple):
+    """Host-side phase-1 selection for the extend pass."""
+
+    anchor_rpos: np.ndarray   # (B, 2) int32; -1 = empty slot
+    anchor_qpos: np.ndarray
+    strand: np.ndarray
+    sub: np.ndarray           # (B,) suboptimal score for MAPQ
+    sub_n: np.ndarray         # (B,)
+
+
+def choose_candidates(
+    sc: ScoredChains,
+    lengths_np: np.ndarray,
+    chosen_k: Optional[np.ndarray] = None,
+    min_out_score: int = 30,
+    mask_level: float = 0.5,
+    match: int = 1,
+) -> Selection:
+    """Pick primary (+ optional split supplementary) chain per read from
+    phase-1 scores; computes MAPQ sub-score stats (the host twin of
+    ``_device_choose``)."""
+    score = _host(sc.score)
+    pos = _host(sc.pos)
+    rend = _host(sc.rend_pos)
+    strand = _host(sc.strand)
+    qb = _host(sc.qspan_beg)
+    qe = _host(sc.qspan_end)
+    arp = _host(sc.anchor_rpos)
+    aqp = _host(sc.anchor_qpos)
+    lengths_np = _host(lengths_np)
+    B, K = score.shape
+    kp = (_host(chosen_k).astype(int) if chosen_k is not None
+          else np.argmax(score, axis=1))
+    bidx = np.arange(B)
+    sp = score[bidx, kp]
+    # ref-overlap with the chosen candidate
+    ovl = ~(
+        (rend <= pos[bidx, kp][:, None]) | (pos >= rend[bidx, kp][:, None])
+    )
+    other = np.ones((B, K), bool)
+    other[bidx, kp] = False
+    live = other & (score > 0)
+    non_ovl = live & ~ovl
+    sub = np.where(non_ovl, score, 0).max(axis=1)
+    sub_n = (non_ovl & (score >= (sp - 3 * match)[:, None])).sum(axis=1)
+    # split supplementary: query-span disjoint candidates (orig frame)
+    qlen = lengths_np[:, None]
+    ob = np.where(strand == 1, qlen - qe, qb)
+    oe = np.where(strand == 1, qlen - qb, qe)
+    pb = ob[bidx, kp][:, None]
+    pe = oe[bidx, kp][:, None]
+    qov = np.maximum(
+        0, np.minimum(pe, oe) - np.maximum(pb, ob)
+    )
+    shorter = np.maximum(1, np.minimum(pe - pb, oe - ob))
+    split_ok = non_ovl & (score >= min_out_score) & (qov < mask_level * shorter)
+    supp_score = np.where(split_ok, score, -1)
+    ks = np.argmax(supp_score, axis=1)
+    has_supp = supp_score[bidx, ks] > 0
+    sel_rpos = np.stack(
+        [arp[bidx, kp], np.where(has_supp, arp[bidx, ks], -1)], axis=1
+    ).astype(np.int32)
+    sel_qpos = np.stack(
+        [aqp[bidx, kp], np.where(has_supp, aqp[bidx, ks], 0)], axis=1
+    ).astype(np.int32)
+    sel_strand = np.stack(
+        [strand[bidx, kp], np.where(has_supp, strand[bidx, ks], 0)], axis=1
+    ).astype(np.int32)
+    return Selection(sel_rpos, sel_qpos, sel_strand, sub, sub_n)
+
+
+def mapq_from_scores(
+    score: int, sub: int, sub_n: int, qlen: int, min_seed_len: int = 19,
+    params: SWParams = SWParams(), frac_rep: float = 0.0,
+) -> int:
+    """BWA-MEM approximate single-end MAPQ [external knowledge:
+    mem_approx_mapq_se; reproduced to match bwa's mapq distribution]."""
+    a, b = params.match, params.mismatch
+    sub = max(sub, min_seed_len * a)
+    if sub >= score:
+        return 0
+    l = qlen
+    identity = 1.0 - float(l * a - score) / (a + b) / l
+    if score == 0:
+        return 0
+    mapq_coef_len, mapq_coef_fac = 50.0, np.log(50.0)
+    tmp = 1.0 if l < mapq_coef_len else mapq_coef_fac / np.log(l)
+    tmp *= identity * identity
+    mapq = int(_MAPQ_COEF * (score - sub) / a * tmp * tmp + 0.499)
+    if sub_n > 0:
+        mapq -= int(4.343 * np.log(sub_n + 1) + 0.499)
+    mapq = max(0, min(60, mapq))
+    return int(mapq * (1.0 - frac_rep) + 0.499)
+
+
+def _cigar_with_clips(ops, lens, n_ops, qbeg, qend, qlen):
+    cig = []
+    if qbeg > 0:
+        cig.append((4, int(qbeg)))  # S
+    for o, l in zip(ops[:n_ops], lens[:n_ops]):
+        if l > 0:
+            cig.append((int(o), int(l)))
+    if qlen - qend > 0:
+        cig.append((4, int(qlen - qend)))
+    return cig
+
+
+def _nm_md(cigar, query, refwin, qbeg, rbeg):
+    """NM distance + MD string by walking the cigar (htslib MD contract)."""
+    nm = 0
+    md = []
+    run = 0
+    qi, ri = qbeg, rbeg
+    for op, ln in cigar:
+        if op == 0:  # M
+            for t in range(ln):
+                qv, rv = int(query[qi + t]), int(refwin[ri + t])
+                if qv == rv and qv < 4:
+                    run += 1
+                else:
+                    md.append(str(run))
+                    md.append("ACGTN"[min(rv, 4)])
+                    run = 0
+                    nm += 1
+            qi += ln
+            ri += ln
+        elif op == 1:  # I
+            nm += ln
+            qi += ln
+        elif op == 2:  # D
+            md.append(str(run))
+            run = 0
+            md.append("^" + "".join("ACGTN"[min(int(refwin[ri + t]), 4)] for t in range(ln)))
+            nm += ln
+            ri += ln
+        # soft clips don't touch MD/NM
+    md.append(str(run))
+    return nm, "".join(md)
+
+
+def finalize_alignments(
+    cand,
+    reads_np: np.ndarray,
+    lengths_np: np.ndarray,
+    sub: np.ndarray,
+    sub_n: np.ndarray,
+    params: SWParams = SWParams(),
+    min_seed_len: int = 19,
+    min_out_score: int = 30,
+    host_ref: Optional[np.ndarray] = None,
+) -> list:
+    """Finalize the 2-slot extend output (slot 0 primary, slot 1 supp)
+    into (HostAlignment, Optional[HostAlignment]) per read.
+
+    ``cand`` is a Candidates (tensors on any device, fetched here once;
+    refwin only when some lane lacks a kernel NM) or a PackedEnd (numpy).
+    When the kernel didn't supply NM, NM/MD are recomputed on host — from
+    cand.refwin if present, else from ``host_ref`` (the unpacked forward
+    reference, BWAIndex.pac)."""
+    pos = _host(cand.pos)
+    strand = _host(cand.strand)
+    score = _host(cand.score)
+    qbeg = _host(cand.qbeg)
+    qend = _host(cand.qend)
+    rend = _host(cand.rend_pos)
+    ops = _host(cand.cigar_ops)
+    lens = _host(cand.cigar_len)
+    n_ops = _host(cand.n_ops)
+    knm = _host(cand.nm)
+    reads_np, lengths_np = _host(reads_np), _host(lengths_np)
+    sub, sub_n = _host(sub), _host(sub_n)
+    # refwin is only transferred off-device when some lane lacks a kernel
+    # NM — the (B,K,W) window is the largest d2h payload
+    lazy: dict = {}
+
+    def _refwin():
+        if "rw" not in lazy:
+            lazy["rw"] = _host(cand.refwin)
+            lazy["rs"] = _host(cand.rstart)
+        return lazy["rw"], lazy["rs"]
+
+    B, S = score.shape
+    # vectorized MAPQ: slot 0 uses the real sub/sub_n stats; supplementary
+    # slots use sub=0/sub_n=0 (bwa treats supplementary pieces the same)
+    sub_full = np.zeros((B, S), np.int64)
+    sub_full[:, 0] = sub
+    sub_n_full = np.zeros((B, S), np.int64)
+    sub_n_full[:, 0] = sub_n
+    mapq_all = mapq_vec(
+        np.asarray(score), sub_full, sub_n_full, np.asarray(lengths_np),
+        min_seed_len, params,
+    )
+    unaligned = HostAlignment(-1, 0, 0, 0, 0, 0, [], 0, "", -1, False)
+    out = []
+    for b in range(B):
+        qlen = int(lengths_np[b])
+
+        def fin(k, sb, sn):
+            s = int(score[b, k])
+            mapq = int(mapq_all[b, k])
+            cig = _cigar_with_clips(
+                ops[b, k], lens[b, k], int(n_ops[b, k]),
+                int(qbeg[b, k]), int(qend[b, k]), qlen,
+            )
+            if knm[b, k] >= 0:
+                nm, md = int(knm[b, k]), ""
+            else:
+                q = reads_np[b][:qlen].astype(np.int32)
+                if strand[b, k] == 1:
+                    qr = q[::-1]
+                    q = np.where(qr < 4, 3 - qr, 4)
+                if hasattr(cand, "refwin"):
+                    refwin, rstart = _refwin()
+                    win, ri = refwin[b, k], int(pos[b, k] - rstart[b, k])
+                else:
+                    p = int(pos[b, k])
+                    win, ri = host_ref[p:int(rend[b, k])], 0
+                nm, md = _nm_md(
+                    [c for c in cig if c[0] != 4], q, win,
+                    int(qbeg[b, k]), ri,
+                )
+            return HostAlignment(
+                pos=int(pos[b, k]), strand=int(strand[b, k]), score=s,
+                sub_score=sb, sub_n=sn, mapq=mapq, cigar=cig, nm=nm, md=md,
+                end_pos=int(rend[b, k]), aligned=True,
+            )
+
+        if score[b, 0] < min_out_score:
+            out.append((unaligned, None))
+            continue
+        prim = fin(0, int(sub[b]), int(sub_n[b]))
+        supp = None
+        if score.shape[1] > 1 and score[b, 1] >= min_out_score and pos[b, 1] >= 0:
+            # ref-overlapping second piece is not a split
+            if rend[b, 1] <= pos[b, 0] or pos[b, 1] >= rend[b, 0]:
+                supp = fin(1, 0, 0)
+        out.append((prim, supp))
+    return out
+
+
+def _orig_frame(qbeg: int, qend: int, strand: int, qlen: int) -> Tuple[int, int]:
+    """Map a strand-frame query interval back to original-read coords."""
+    if strand == 0:
+        return qbeg, qend
+    return qlen - qend, qlen - qbeg
+
+
+def select_alignments(
+    cand: Candidates,
+    reads_np: np.ndarray,
+    lengths_np: np.ndarray,
+    chosen_k: Optional[np.ndarray] = None,
+    params: SWParams = SWParams(),
+    min_seed_len: int = 19,
+    min_out_score: int = 30,   # bwa -T
+    mask_level: float = 0.5,   # bwa query-overlap threshold for secondary
+    find_splits: bool = True,
+) -> list:
+    """Finalize one primary (+ optional supplementary split) per read.
+
+    Returns a list of (HostAlignment, Optional[HostAlignment]); primary has
+    aligned=False for unmapped reads.  ``chosen_k`` overrides the
+    per-read candidate choice (joint pair selection).  The candidates'
+    tensors (any device) are fetched once, refwin only when some lane
+    lacks a kernel NM.
+    """
+    pos = _host(cand.pos)
+    strand = _host(cand.strand)
+    score = _host(cand.score)
+    qbeg = _host(cand.qbeg)
+    qend = _host(cand.qend)
+    rend = _host(cand.rend_pos)
+    ops = _host(cand.cigar_ops)
+    lens = _host(cand.cigar_len)
+    n_ops = _host(cand.n_ops)
+    knm = _host(cand.nm)
+    reads_np, lengths_np = _host(reads_np), _host(lengths_np)
+    if chosen_k is not None:
+        chosen_k = _host(chosen_k)
+    lazy: dict = {}
+
+    def _refwin():
+        if "rw" not in lazy:
+            lazy["rw"] = _host(cand.refwin)
+            lazy["rs"] = _host(cand.rstart)
+        return lazy["rw"], lazy["rs"]
+
+    B, K = score.shape
+
+    def finalize(b, k, qlen, sub, sub_n):
+        s = int(score[b, k])
+        mapq = mapq_from_scores(s, sub, sub_n, qlen, min_seed_len, params)
+        cig = _cigar_with_clips(
+            ops[b, k], lens[b, k], int(n_ops[b, k]),
+            int(qbeg[b, k]), int(qend[b, k]), qlen,
+        )
+        if knm[b, k] >= 0:
+            nm, md = int(knm[b, k]), ""
+        else:
+            refwin, rstart = _refwin()
+            q = reads_np[b][:qlen].astype(np.int32)
+            if strand[b, k] == 1:
+                qr = q[::-1]
+                q = np.where(qr < 4, 3 - qr, 4)
+            nm, md = _nm_md(
+                [c for c in cig if c[0] != 4],
+                q,
+                refwin[b, k],
+                int(qbeg[b, k]),
+                int(pos[b, k] - rstart[b, k]),
+            )
+        return HostAlignment(
+            pos=int(pos[b, k]), strand=int(strand[b, k]), score=s,
+            sub_score=sub, sub_n=sub_n, mapq=mapq, cigar=cig, nm=nm, md=md,
+            end_pos=int(rend[b, k]), aligned=True,
+        )
+
+    unaligned = HostAlignment(-1, 0, 0, 0, 0, 0, [], 0, "", -1, False)
+    out = []
+    for b in range(B):
+        qlen = int(lengths_np[b])
+        k_best = int(chosen_k[b]) if chosen_k is not None else int(np.argmax(score[b]))
+        s_best = int(score[b, k_best])
+        if s_best < min_out_score:
+            out.append((unaligned, None))
+            continue
+        qb_best, qe_best = _orig_frame(
+            int(qbeg[b, k_best]), int(qend[b, k_best]),
+            int(strand[b, k_best]), qlen,
+        )
+        # suboptimal stats + split detection over the other candidates
+        sub, sub_n = 0, 0
+        supp_k, supp_score = -1, 0
+        for k in range(K):
+            if k == k_best or score[b, k] <= 0:
+                continue
+            sk = int(score[b, k])
+            ref_overlap = not (
+                rend[b, k] <= pos[b, k_best] or pos[b, k] >= rend[b, k_best]
+            )
+            if not ref_overlap:
+                sub = max(sub, sk)
+                if sk >= s_best - params.match * 3:
+                    sub_n += 1
+            if find_splits and sk >= min_out_score and not ref_overlap:
+                qb, qe = _orig_frame(
+                    int(qbeg[b, k]), int(qend[b, k]), int(strand[b, k]), qlen
+                )
+                ov = max(0, min(qe_best, qe) - max(qb_best, qb))
+                shorter = min(qe_best - qb_best, qe - qb)
+                if shorter > 0 and ov < mask_level * shorter and sk > supp_score:
+                    supp_k, supp_score = k, sk
+        prim = finalize(b, k_best, qlen, sub, sub_n)
+        supp = None
+        if supp_k >= 0:
+            supp = finalize(b, supp_k, qlen, 0, 0)
+        out.append((prim, supp))
+    return out

@@ -34,16 +34,21 @@ import torch
 
 from ..device import resolve_device
 from ..formats import bai, fastq
-from ..formats.sam import FDUP, SAMHeader
-from ..index.bwt import build_index, load_index
+from ..formats.sam import (
+    FDUP, FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR, FREAD1, FREAD2,
+    FREVERSE, FSUPPLEMENTARY, FUNMAP, SAMHeader, SAMRecord, cigar_to_str,
+)
+from ..index.bwt import BWAIndex, build_index, load_index
 from ..index.fm import FMIndex, _reconstruct_sa
 from ..index.kmer import kmer_arrays_np, kmer_index_from_arrays
 from ..utils.metrics import metrics
 from ..utils.prefetch import prefetch
-from .core import (DEFAULT_DISTRO, device_estimate_distro, fused_align_leaves,
-                   pack_leaves, unpack_fused, unpack_leaves, unpack_xa)
-from .markdup import StreamDupMarker
-from .pairing import InsertDistro
+from .core import (DEFAULT_DISTRO, HostAlignment, _orig_frame,
+                   device_estimate_distro, fused_align_leaves, pack_leaves,
+                   unpack_fused, unpack_leaves, unpack_xa)
+from .markdup import (StreamDupMarker, make_sa_tag, split_qualifies,
+                      strip_seq, unclipped_5p)
+from .pairing import InsertDistro, is_proper
 
 PG_LINE = "@PG\tID:speedseq_tpu_torch\tPN:speedseq_tpu_torch\tVN:0.1.0"
 
@@ -579,3 +584,302 @@ def _lib_map(rg_lines: Optional[List[str]], cfg: AlignConfig) -> Dict[str, int]:
         lb = d.get("LB", rid)
         out[rid] = libs.setdefault(lb, len(libs))
     return out
+
+
+# ------------------------------------------- per-record host assembly (scalar)
+# The JAX package's scalar record builder, copied: the streaming path above
+# builds records column-wise (align/emit.py); these take the unfused API's
+# selections (core.select_alignments / finalize_alignments).
+
+def _phred(q: np.ndarray, length: int) -> str:
+    return "".join(chr(min(int(x), 93) + 33) for x in q[:length])
+
+
+@dataclass
+class _PairRow:
+    """Host record of one read end (primary + optional supplementary).
+
+    seq_rc/qual_r are the reverse-complemented/reversed forms, which the
+    caller computes for a whole batch at once."""
+
+    name: str
+    seq: str
+    qual: str
+    seq_rc: str
+    qual_r: str
+    aln: HostAlignment
+    supp: Optional[HostAlignment]
+    tid: int
+    rg: str = ""
+
+
+def assemble_records(
+    rows1: List[_PairRow],
+    rows2: Optional[List[_PairRow]],
+    idx: BWAIndex,
+    distro: InsertDistro,
+    cfg: AlignConfig,
+    marker: Optional[StreamDupMarker] = None,
+    lib_of_rg: Optional[Dict[str, int]] = None,
+):
+    """Build SAM records with pair flags, mate tags, dup marks, and the
+    splitter/discordant side channels.
+
+    Called once per batch on the streaming path: ``marker`` carries the
+    run-wide duplicate signature tables across calls (samblaster's
+    streaming hash table); a fresh marker is made when none is given
+    (single-shot use).  ``lib_of_rg`` scopes dup signatures per library.
+    """
+    paired = rows2 is not None
+    n = len(rows1)
+    main: List[SAMRecord] = []
+    splitters: List[SAMRecord] = []
+    discordants: List[SAMRecord] = []
+    if marker is None:
+        marker = StreamDupMarker()
+
+    # offsets convert genome pos → (tid, chrom pos)
+    offsets = np.asarray(idx.offsets + [idx.l_pac], dtype=np.int64)
+
+    # ---- duplicate marking over pairs ----------------------------------
+    lib = np.zeros(n, dtype=np.int64)
+    if lib_of_rg:
+        for i, r in enumerate(rows1):
+            lib[i] = lib_of_rg.get(r.rg, 0)
+    if paired:
+        t1 = np.array([r.tid for r in rows1])
+        t2 = np.array([r.tid for r in rows2])
+        ok1 = np.array([r.aln.aligned for r in rows1])
+        ok2 = np.array([r.aln.aligned for r in rows2])
+        p5_1 = np.array(
+            [
+                unclipped_5p(r.aln.pos, r.aln.end_pos, r.aln.strand, r.aln.cigar)
+                if r.aln.aligned else -1
+                for r in rows1
+            ]
+        )
+        p5_2 = np.array(
+            [
+                unclipped_5p(r.aln.pos, r.aln.end_pos, r.aln.strand, r.aln.cigar)
+                if r.aln.aligned else -1
+                for r in rows2
+            ]
+        )
+        s1 = np.array([r.aln.strand for r in rows1])
+        s2 = np.array([r.aln.strand for r in rows2])
+        dup = marker.mark_batch(t1, p5_1, s1, ok1, t2, p5_2, s2, ok2, lib=lib)
+        dup &= ok1 | ok2
+    else:
+        ok1 = np.array([r.aln.aligned for r in rows1])
+        p5_1 = np.array(
+            [
+                unclipped_5p(r.aln.pos, r.aln.end_pos, r.aln.strand, r.aln.cigar)
+                if r.aln.aligned else -1
+                for r in rows1
+            ]
+        )
+        t1 = np.array([r.tid for r in rows1])
+        s1 = np.array([r.aln.strand for r in rows1])
+        none = np.full(n, -1)
+        dup = marker.mark_batch(
+            t1, p5_1, s1, ok1, none, none, none, np.zeros(n, dtype=bool),
+            lib=lib,
+        )
+        dup &= ok1
+
+    # samblaster --maxSplitCount caps the number of split pieces a read
+    # may have to enter the splitter file (bin/speedseq:242); this aligner
+    # emits at most primary+1 supplementary = 2 pieces, so the cap gates
+    # splitter emission entirely when set below 2
+    split_ok = cfg.max_split_count >= 2
+    for i in range(n):
+        r1 = rows1[i]
+        r2 = rows2[i] if paired else None
+        recs = _pair_records(r1, r2, idx, distro, bool(dup[i]), cfg)
+        for rec, is_split, is_disc in recs:
+            main.append(rec)
+            dup_ok = not (rec.flag & FDUP) or cfg.include_dups_in_side
+            if is_split and dup_ok and split_ok:
+                splitters.append(strip_seq(rec))
+            if is_disc and dup_ok:
+                discordants.append(strip_seq(rec))
+    return main, splitters, discordants
+
+
+def _pair_records(
+    r1: _PairRow, r2: Optional[_PairRow], idx: BWAIndex,
+    distro: InsertDistro, is_dup: bool, cfg: AlignConfig,
+):
+    """Emit (record, in_splitters, in_discordants) for one template."""
+    offsets = np.asarray(idx.offsets + [idx.l_pac], dtype=np.int64)
+
+    def cpos(a: HostAlignment):
+        tid = int(np.searchsorted(offsets, a.pos, side="right") - 1)
+        return tid, a.pos - int(offsets[tid])
+
+    out = []
+    ends = [(r1, r2, FREAD1), (r2, r1, FREAD2)] if r2 is not None else [(r1, None, 0)]
+    # precompute chrom coords
+    infos = {}
+    for r, _, _ in ends:
+        if r is not None and r.aln.aligned:
+            tid, p = cpos(r.aln)
+            infos[id(r)] = (tid, p, r.aln.end_pos - r.aln.pos + p)
+    # proper-pair determination
+    proper = False
+    if r2 is not None and r1.aln.aligned and r2.aln.aligned:
+        proper = is_proper(
+            r1.aln.pos, r1.aln.end_pos, r1.aln.strand,
+            r2.aln.pos, r2.aln.end_pos, r2.aln.strand,
+            distro, same_tid=(r1.tid == r2.tid),
+        )
+    both_mapped = (
+        r2 is not None and r1.aln.aligned and r2.aln.aligned
+    )
+    discordant = both_mapped and not proper
+
+    for r, mate, read_flag in ends:
+        if r is None:
+            continue
+        a = r.aln
+        flag = read_flag
+        if r2 is not None:
+            flag |= FPAIRED
+        if proper:
+            flag |= FPROPER_PAIR
+        if not a.aligned:
+            flag |= FUNMAP
+        if a.aligned and a.strand:
+            flag |= FREVERSE
+        if mate is not None:
+            if not mate.aln.aligned:
+                flag |= FMUNMAP
+            elif mate.aln.strand:
+                flag |= FMREVERSE
+        if is_dup:
+            flag |= FDUP
+
+        if a.aligned:
+            tid, pos, _end = infos[id(r)]
+        elif mate is not None and mate.aln.aligned:
+            tid, pos, _end = infos[id(mate)]
+        else:
+            tid, pos = -1, -1
+        if mate is not None and mate.aln.aligned:
+            mtid, mpos, _mend = infos[id(mate)]
+        elif a.aligned and mate is not None:
+            mtid, mpos = tid, pos  # mate unmapped: placed with this read
+        else:
+            mtid, mpos = (tid, pos) if not a.aligned else (-1, -1)
+        if r2 is None:
+            mtid, mpos = -1, -1
+
+        tlen = 0
+        if both_mapped and r.tid == mate.tid:
+            left = min(a.pos, mate.aln.pos)
+            right = max(a.end_pos, mate.aln.end_pos)
+            if a.pos < mate.aln.pos or (a.pos == mate.aln.pos and read_flag == FREAD1):
+                tlen = right - left
+            else:
+                tlen = -(right - left)
+
+        seq = r.seq if not (a.aligned and a.strand) else r.seq_rc
+        qual = r.qual if not (a.aligned and a.strand) else r.qual_r
+        tags = []
+        if a.aligned:
+            # MD only when the host computed it (bwa mem itself emits no MD;
+            # the pallas path reports NM from the traceback kernel)
+            tags += ([("MD", "Z", a.md)] if a.md else [])
+            tags += [("NM", "i", a.nm), ("AS", "i", a.score),
+                     ("XS", "i", a.sub_score)]
+        tags.append(("RG", "Z", r.rg or cfg.rg_id))
+        if mate is not None and mate.aln.aligned:
+            # samblaster --addMateTags contract (bin/speedseq:439)
+            tags.append(("MC", "Z", cigar_to_str(mate.aln.cigar)))
+            tags.append(("MQ", "i", mate.aln.mapq))
+        # slot-1 candidate: a split piece (query-disjoint → SA tag +
+        # supplementary record, samblaster splitter channel) or an XA
+        # secondary (query-overlapping alternative placement, bwa's
+        # XA:Z:chr,±pos,CIGAR,NM; emitted when within 80% of the primary
+        # score [external knowledge: bwa mem XA contract])
+        has_supp = a.aligned and r.supp is not None
+        split_ok = False
+        if has_supp:
+            qlen = len(r.seq)
+            pq = _cigar_qspan(a.cigar)
+            sq = _cigar_qspan(r.supp.cigar)
+            pb, pe = _orig_frame(pq[0], pq[1], a.strand, qlen)
+            sb, se = _orig_frame(sq[0], sq[1], r.supp.strand, qlen)
+            split_ok = split_qualifies(pb, pe, sb, se, cfg.min_non_overlap)
+        has_split = has_supp and split_ok
+        if has_split:
+            stid, spos = cpos(r.supp)
+            tags.append(
+                (
+                    "SA",
+                    "Z",
+                    make_sa_tag(
+                        idx.names[stid], spos, r.supp.strand, r.supp.cigar,
+                        r.supp.mapq, r.supp.nm,
+                    ),
+                )
+            )
+        elif has_supp and r.supp.score >= 0.8 * a.score:
+            stid, spos = cpos(r.supp)
+            tags.append((
+                "XA", "Z",
+                f"{idx.names[stid]},{'-' if r.supp.strand else '+'}"
+                f"{spos + 1},{cigar_to_str(r.supp.cigar)},{r.supp.nm};",
+            ))
+
+        rec = SAMRecord(
+            qname=r.name, flag=flag, tid=tid, pos=pos,
+            mapq=a.mapq if a.aligned else 0,
+            cigar=a.cigar if a.aligned else [],
+            mtid=mtid, mpos=mpos, tlen=tlen, seq=seq, qual=qual, tags=tags,
+        )
+        out.append((rec, has_split, discordant))
+
+        if has_split:
+            stid, spos = cpos(r.supp)
+            sflag = flag | FSUPPLEMENTARY
+            if r.supp.strand:
+                sflag |= FREVERSE
+            else:
+                sflag &= ~FREVERSE
+            sseq = r.seq if not r.supp.strand else r.seq_rc
+            squal = r.qual if not r.supp.strand else r.qual_r
+            stags = [
+                ("NM", "i", r.supp.nm),
+                *([("MD", "Z", r.supp.md)] if r.supp.md else []),
+                ("AS", "i", r.supp.score), ("RG", "Z", r.rg or cfg.rg_id),
+                (
+                    "SA", "Z",
+                    make_sa_tag(
+                        idx.names[tid], pos, a.strand, a.cigar, a.mapq, a.nm
+                    ),
+                ),
+            ]
+            srec = SAMRecord(
+                qname=r.name, flag=sflag, tid=stid, pos=spos,
+                mapq=r.supp.mapq, cigar=r.supp.cigar, mtid=mtid, mpos=mpos,
+                tlen=0, seq=sseq, qual=squal, tags=stags,
+            )
+            out.append((srec, True, False))
+    return out
+
+
+def _cigar_qspan(cigar) -> Tuple[int, int]:
+    """(qbeg, qend) covered by non-clip query ops, strand frame."""
+    lead = cigar[0][1] if cigar and cigar[0][0] in (4, 5) else 0
+    span = sum(l for op, l in cigar if op in (0, 1, 7, 8))
+    return lead, lead + span
+
+
+def sort_key(rec: SAMRecord) -> Tuple[int, int, int]:
+    """samtools coordinate-sort key: tid<<32|(pos+1)<<1|is_rev
+    (src/samtools-1.3.1/bam_sort.c:1612); unmapped (tid<0) last.
+    The external sorter (formats.extsort) implements the same key
+    columnarly; this scalar form is kept for tests/verification."""
+    tid = rec.tid if rec.tid >= 0 else 1 << 30
+    return (tid, rec.pos + 1, 1 if rec.flag & FREVERSE else 0)

@@ -3,10 +3,11 @@
 Counterpart of speedseq_tpu/align/sw.py.  The banded wrappers
 (``banded_sw_pallas`` / ``banded_sw_score_pallas``) dispatch by the
 tensors' device through ops/sw_banded.py, the unbanded score-only
-``banded_sw_score`` (var's haplotype scorer) through ops/sw_unbanded.py:
-the CUDA kernel for a CUDA tensor, the plain twin for a CPU tensor.  The
-kernels take any N (one warp per alignment, bounds-checked), so nothing is
-padded.  Scoring follows bwa defaults (match 1, mismatch 4,
+``banded_sw_score`` (var's haplotype scorer) and the unbanded DP with
+traceback ``banded_sw`` (the unfused alignment API's extension) through
+ops/sw_unbanded.py: the CUDA kernel for a CUDA tensor, the plain twin for
+a CPU tensor.  The kernels take any N (one warp per alignment,
+bounds-checked), so nothing is padded.  Scoring follows bwa defaults (match 1, mismatch 4,
 gap open 6, gap extend 1).
 """
 
@@ -32,7 +33,8 @@ class SWResult(NamedTuple):
     qend: torch.Tensor       # (N,) query end (exclusive)
     rbeg: torch.Tensor       # (N,) ref-window start (inclusive)
     rend: torch.Tensor       # (N,) ref-window end (exclusive)
-    cigar_ops: torch.Tensor  # (N, MAX_OPS) int32, valid below n_ops
+    cigar_ops: torch.Tensor  # (N, MAX_OPS) valid below n_ops (int32;
+    #                          int8 with -1 padding from banded_sw)
     cigar_len: torch.Tensor  # (N, MAX_OPS) int32
     n_ops: torch.Tensor      # (N,)
     gscore: torch.Tensor     # (N,) best score reaching the query end
@@ -77,9 +79,27 @@ def banded_sw_score(query: torch.Tensor, qlen: torch.Tensor,
     tensor (ops/sw_unbanded.py).
 
     query (N, Lq) and ref (N, Lr) are base codes (4 = N / padding, which
-    scores -1 against anything), qlen (N,) the live query length; the
-    kernel takes Lq <= Lr <= 1024 and raises on any other CUDA shape, the
-    twin takes any.  The best cell is the first maximum in row-major
-    order."""
+    scores -1 against anything), qlen (N,) the live query length.  Every
+    device takes Lr up to ``ops/sw_unbanded.py:max_width(params)`` (32,768
+    at bwa scoring, where the int32 key of the JAX scan stops being exact)
+    and raises past it; the kernel also needs Lq <= Lr.  The best cell is
+    the first maximum in row-major order."""
     return SWScore(*sw_unbanded.sw_score_unbanded(query, qlen, ref,
                                                   params=tuple(params)))
+
+
+def banded_sw(query: torch.Tensor, qlen: torch.Tensor, ref: torch.Tensor,
+              params: SWParams = SWParams(), max_ops: int = 48) -> SWResult:
+    """Local alignment of each query lane against its own ref window, with
+    traceback (the counterpart of the JAX package's XLA ``banded_sw``; no
+    band, no deletion cap), in one launch of the hand kernel
+    ``ssq_sw_unbanded_cigar`` on a CUDA tensor, its plain twin on a CPU
+    tensor (ops/sw_unbanded.py).
+
+    query (N, Lq) int codes (4 = N / padding), qlen (N,), ref (N, Lr)
+    codes (4 = out of range), Lr <= 256 (the deletion distance is a uint8,
+    as in the JAX function).  cigar_ops (N, max_ops) int8 with -1 padding,
+    cigar_len int32 with 0 padding; n_ops may exceed max_ops, whose last
+    slot then holds the last op written."""
+    return SWResult(*sw_unbanded.sw_cigar_unbanded(
+        query, qlen, ref, params=tuple(params), max_ops=max_ops))

@@ -348,6 +348,19 @@ def forward_ext(fm: FMIndex, iv: BiInterval, c: torch.Tensor) -> BiInterval:
     return BiInterval(k=ext.l, l=ext.k, s=ext.s)
 
 
+def get_ref_window(fm: FMIndex, start: torch.Tensor,
+                   length: int) -> torch.Tensor:
+    """Forward reference [start, start+length) as (..., length) uint8
+    codes from any starts (one gather a base from the packed words);
+    out-of-range positions yield 4 (never matches)."""
+    dev = start.device
+    pos = start.to(torch.int64)[..., None] + torch.arange(length, device=dev)
+    words = fm.ref_pack[(pos >> 4).clamp(0, fm.ref_pack.shape[0] - 1)]
+    codes = (words >> ((pos & 15) * 2).to(torch.int32)) & 3
+    inb = (pos >= 0) & (pos < fm.l_pac)
+    return torch.where(inb, codes, 4).to(torch.uint8)
+
+
 def get_ref_window_packed(fm: FMIndex, start16: torch.Tensor,
                           length: int) -> torch.Tensor:
     """Forward reference [start16, start16+length) as (..., length) uint8

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as Fn
 
 MULT_LO = np.uint32(0x9E3779B1)  # bucket hash multipliers (Fibonacci)
 MULT_HI = np.uint32(0x85EBCA6B)
@@ -105,6 +106,35 @@ def select_key(ok: torch.Tensor) -> torch.Tensor:
     ties to break and both frameworks pick the same columns."""
     j = torch.arange(ok.shape[-1], dtype=torch.int32, device=ok.device)
     return (ok.to(torch.int32) << 8) - j
+
+
+def read_kmers(reads: torch.Tensor, k: int):
+    """(lo, hi, bad) at every read position (B, L): the k-mer starting
+    there as the key layout of ``_rolling_keys_np`` (hi = the first k - 16
+    bases in its low 2(k - 16) bits, lo = the last 16 bases), both as
+    int64 tensors holding uint32 values; ``bad`` flags windows holding a
+    code above 3 and positions past L - k (their keys are 0).  Built with
+    int64 shifts, exact on every device (a float32 convolution would go
+    through cuDNN in TF32 on the card).  17 <= k <= 24."""
+    if not 16 < k <= 24:
+        raise ValueError(f"read_kmers supports 17..24-mers, got k={k}")
+    B, L = reads.shape
+    dev = reads.device
+    r = reads.to(torch.int64).clamp(0, 4)
+    bad_ind = (r > 3).to(torch.int64)
+    rr = torch.where(r > 3, 0, r)
+    n_pos = max(L - k + 1, 0)
+    key = torch.zeros((B, n_pos), dtype=torch.int64, device=dev)
+    for j in range(k):
+        key = (key << 2) | rr[:, j:j + n_pos]
+    cs = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                    bad_ind.cumsum(1)], dim=1)
+    bad = (cs[:, k:k + n_pos] - cs[:, :n_pos]) > 0
+    pad = L - n_pos
+    lo = Fn.pad(key & 0xFFFFFFFF, (0, pad))
+    hi = Fn.pad(key >> 32, (0, pad))
+    bad = Fn.pad(bad, (0, pad), value=True)
+    return lo, hi, bad
 
 
 def find_seeds_hash(

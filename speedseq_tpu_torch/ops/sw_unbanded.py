@@ -1,7 +1,7 @@
-"""Unbanded score-only local affine-gap Smith-Waterman: CUDA kernel and
-plain twin (var's and somatic's haplotype scan).
+"""Unbanded local affine-gap Smith-Waterman: CUDA kernels and plain twins.
 
-``sw_score_unbanded`` computes exactly what the JAX package's XLA scan
+``sw_score_unbanded`` (var's and somatic's haplotype scan) computes
+exactly what the JAX package's XLA scan
 ``speedseq_tpu/align/sw.py:banded_sw_score`` computes, one alignment a
 lane: no band, the deletion state an exclusive prefix max of Ht + e*j
 over the whole row, ambiguous bases (a code of 4 or more) scoring -1
@@ -9,15 +9,29 @@ against anything, the best cell the first maximum in row-major order
 (a row's maximum replaces the running best only when strictly larger, at
 the row's first maximal column), gscore/grend from row qlen - 1.
 
-A CUDA tensor launches the hand kernel of ``csrc/sw_unbanded.cu`` (one
-warp an alignment, the row in registers; it raises if the launch fails),
-a CPU tensor runs ``sw_score_unbanded_plain``, a loop of tensor ops a
-query row, which is the kernel's executable specification.  Any other
-device raises.  There is no fallback from one to the other.
+``sw_cigar_unbanded`` (the unfused alignment API's extension,
+align/core.py:align_candidates) computes exactly what the JAX package's
+``speedseq_tpu/align/sw.py:banded_sw`` computes: the same DP (its
+deletion source the arg of the exclusive prefix max of the value-major
+key (Ht + e*j) * Lr + j, so a tie takes the largest column), the best
+cell the first maximum over all Lq rows, then banded_sw's traceback
+state machine; all ten SWResult fields.
 
-Shapes: query (N, Lq) and ref (N, Lr) codes, qlen (N,).  The kernel
-takes Lq <= Lr <= 1024 and a CUDA tensor of any other shape raises; the
-twin takes any Lq and Lr >= 1.
+A CUDA tensor launches a hand kernel of ``csrc/sw_unbanded.cu`` (one warp
+an alignment; it raises if the launch fails), a CPU tensor runs the plain
+twin (``sw_score_unbanded_plain``, ``sw_cigar_unbanded_plain``), a loop of
+tensor ops a query row, which is the kernel's executable specification.
+Any other device raises.  There is no fallback from one to the other.
+
+Shapes: query (N, Lq) and ref (N, Lr) codes, qlen (N,).
+- The scan takes Lr up to ``max_width(params)`` on every device (32,768
+  at bwa scoring): past it the int32 key (Ht + e*j) * Lr + j of the twin,
+  and of the JAX scan, no longer holds its value exactly.  The kernel also
+  needs Lq <= Lr; it keeps the row in registers up to Lr = 1024 and walks
+  it in tiles of up to 1,024 columns above (``wide_layout``).
+- The traceback DP takes Lr <= 256 on every device (banded_sw stores the
+  deletion distance as uint8) and Lq >= 1; its kernel keeps a lane's
+  direction codes in shared memory, 128 bytes a row: Lq <= 1792 on cuda.
 """
 
 from __future__ import annotations
@@ -32,7 +46,14 @@ import torch
 from .nvcc_build import CSRC_DIR, build_library
 
 NEG = -(10 ** 6)
-MAX_LR = 1024
+MAX_LR = 1024                 # the narrow scan's row, in registers
+WIDE_WIDTHS = (20, 24, 32)    # columns a thread in a tile of the wide scan
+WIDE_BYTES_PER_COL = 12       # H, V and the window code of a wide row
+SMEM_MAX = 232_448            # shared memory one block may take on sm_90
+CIGAR_MAX_LR = 256
+CIGAR_MAX_LQ = 1792
+CIGAR_MAX_OPS = 64
+INT32_MAX = 2 ** 31 - 1
 
 # int32 instructions a cell, the essential work that the roofline bound in
 # chip_smoke.py counts against Hopper's issue rate (an operation that one
@@ -44,8 +65,17 @@ MAX_LR = 1024
 # = 8.
 OPS_PER_CELL = 8
 
-# launches of the kernel since the last reset (plain-twin calls not counted)
-LAUNCHES = {"sw_unbanded_score": 0}
+# the traceback DP's forward pass, int32 instructions a cell: the scan's 8
+# (the prefix max taken on the key (Ht + e j) * 256 + j, one multiply-add
+# where the scan adds e j), the vertical-extend compare 1, the direction 3
+# (three compares into a select chain), the record bit 1 and packing the
+# 4-bit code into the row's word 2 = 15.  The walk, at most Lq + Lr steps
+# a lane, is not counted.
+OPS_PER_CELL_CIGAR = 15
+
+# launches of each kernel since the last reset (plain-twin calls not
+# counted); the wide scan counts as sw_unbanded_score
+LAUNCHES = {"sw_unbanded_score": 0, "sw_unbanded_cigar": 0}
 
 SOURCE = os.path.join(CSRC_DIR, "sw_unbanded.cu")
 
@@ -74,6 +104,12 @@ def _load() -> ctypes.CDLL:
             lib.ssq_sw_unbanded_score.argtypes = [
                 vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, cl, vp]
             lib.ssq_sw_unbanded_score.restype = ci
+            lib.ssq_sw_unbanded_score_wide.argtypes = [
+                vp, vp, vp] + [ci] * 9 + [vp, cl, vp, vp]
+            lib.ssq_sw_unbanded_score_wide.restype = ci
+            lib.ssq_sw_unbanded_cigar.argtypes = [
+                vp, vp, vp] + [ci] * 8 + [vp, cl, vp, vp, vp]
+            lib.ssq_sw_unbanded_cigar.restype = ci
             _lib = lib
     return _lib
 
@@ -92,32 +128,72 @@ def _check_inputs(query, qlen, ref):
     return N, Lq, Lr
 
 
-def check_kernel_shape(Lq: int, Lr: int) -> None:
+def max_width(params=(1, 4, 6, 1)) -> int:
+    """The widest window the scan takes: the largest Lr whose largest key
+    (Ht + e j) * Lr + j stays an int32, with Ht <= match * Lr (a local
+    score gains at most match a window column) and j <= Lr - 1."""
+    m, e = max(params[0], 0), max(params[3], 0)
+    key = lambda L: (m * L + e * (L - 1)) * L + L - 1
+    L = int((INT32_MAX / max(m + e, 1)) ** 0.5) + 2
+    while key(L) > INT32_MAX:
+        L -= 1
+    return L
+
+
+def check_width(Lr: int, params=(1, 4, 6, 1)) -> None:
+    """Raises ValueError above ``max_width(params)``, on every device."""
+    top = max_width(params)
+    if Lr > top:
+        raise ValueError(f"the scan takes Lr <= {top} at these scores "
+                         f"(its int32 key wraps past it), got Lr={Lr}")
+
+
+def check_kernel_shape(Lq: int, Lr: int, params=(1, 4, 6, 1)) -> None:
     """Raises ValueError unless the kernel takes (Lq, Lr): Lq <= Lr <=
-    MAX_LR (its row is held in registers, at most 32 columns a thread)."""
-    if not Lq <= Lr <= MAX_LR:
-        raise ValueError(f"the kernel needs Lq <= Lr <= {MAX_LR}, got "
-                         f"Lq={Lq} Lr={Lr}")
+    max_width(params)."""
+    check_width(Lr, params)
+    if Lq > Lr:
+        raise ValueError(f"the kernel needs Lq <= Lr, got Lq={Lq} Lr={Lr}")
+
+
+def wide_layout(Lr: int) -> tuple:
+    """(C, ntiles) of the wide scan at Lr > MAX_LR: as few tiles of at most
+    1,024 columns as hold the row, C the smallest of WIDE_WIDTHS columns a
+    thread that fills them."""
+    ntiles = -(-Lr // MAX_LR)
+    C = next(w for w in WIDE_WIDTHS if 32 * w * ntiles >= Lr)
+    return C, -(-Lr // (32 * C))
 
 
 def sw_score_unbanded(query, qlen, ref, params=(1, 4, 6, 1)):
     """Returns (score, qend, rend, gscore, grend), (N,) int32 each."""
     N, Lq, Lr = _check_inputs(query, qlen, ref)
+    check_width(Lr, params)
     dev = query.device
     if dev.type == "cpu":
         return sw_score_unbanded_plain(query, qlen, ref, params)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    check_kernel_shape(Lq, Lr)
+    check_kernel_shape(Lq, Lr, params)
     lib = _load()
     q, ql, r = (t.to(torch.int32).contiguous() for t in (query, qlen, ref))
     out = torch.empty((5, N), dtype=torch.int32, device=dev)
     if N:
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):   # the runtime launches on its device
-            rc = lib.ssq_sw_unbanded_score(
-                q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
-                *params, out.data_ptr(), N,
-                torch.cuda.current_stream(dev).cuda_stream)
+            if Lr <= MAX_LR:
+                rc = lib.ssq_sw_unbanded_score(
+                    q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
+                    *params, out.data_ptr(), N, stream)
+            else:
+                C, ntiles = wide_layout(Lr)
+                row = ntiles * 32 * C * WIDE_BYTES_PER_COL
+                scratch = (None if row <= SMEM_MAX else torch.empty(
+                    N * row, dtype=torch.uint8, device=dev))
+                rc = lib.ssq_sw_unbanded_score_wide(
+                    q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, C,
+                    ntiles, *params, out.data_ptr(), N,
+                    None if scratch is None else scratch.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"sw_unbanded_score launch failed: "
                                f"cudaError {rc}")
@@ -179,3 +255,162 @@ def sw_score_unbanded_plain(query, qlen, ref, params=(1, 4, 6, 1)):
         H = torch.cat([zcol, Hr], dim=1)
         V = torch.cat([negcol, Vr], dim=1)
     return bs, bq, br, gs, gr
+
+
+def check_cigar_shape(Lq: int, Lr: int, max_ops: int, cuda: bool) -> None:
+    """Raises ValueError unless the traceback DP takes (Lq, Lr, max_ops)."""
+    if Lq < 1 or not 1 <= Lr <= CIGAR_MAX_LR:
+        raise ValueError(f"the traceback DP needs Lq >= 1 and 1 <= Lr <= "
+                         f"{CIGAR_MAX_LR} (deletion distances are uint8), "
+                         f"got Lq={Lq} Lr={Lr}")
+    if cuda and (Lq > CIGAR_MAX_LQ or not 1 <= max_ops <= CIGAR_MAX_OPS):
+        raise ValueError(f"the kernel needs Lq <= {CIGAR_MAX_LQ} and "
+                         f"1 <= max_ops <= {CIGAR_MAX_OPS}, got Lq={Lq} "
+                         f"max_ops={max_ops}")
+
+
+def sw_cigar_unbanded(query, qlen, ref, params=(1, 4, 6, 1), max_ops=48):
+    """Returns (score, qbeg, qend, rbeg, rend, cigar_ops, cigar_len, n_ops,
+    gscore, grend): (N,) int32, but cigar_ops (N, max_ops) int8 (-1
+    padding) and cigar_len (N, max_ops) int32 (0 padding)."""
+    N, Lq, Lr = _check_inputs(query, qlen, ref)
+    dev = query.device
+    check_cigar_shape(Lq, Lr, max_ops, dev.type == "cuda")
+    if dev.type == "cpu":
+        return sw_cigar_unbanded_plain(query, qlen, ref, params, max_ops)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = _load()
+    q, ql, r = (t.to(torch.int32).contiguous() for t in (query, qlen, ref))
+    out = torch.empty((8, N), dtype=torch.int32, device=dev)
+    ops = torch.empty((N, max_ops), dtype=torch.int8, device=dev)
+    lens = torch.empty((N, max_ops), dtype=torch.int32, device=dev)
+    if N:
+        with torch.cuda.device(dev):
+            rc = lib.ssq_sw_unbanded_cigar(
+                q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
+                *params, max_ops, out.data_ptr(), N, ops.data_ptr(),
+                lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"sw_unbanded_cigar launch failed: "
+                               f"cudaError {rc}")
+        with _lock:
+            LAUNCHES["sw_unbanded_cigar"] += 1
+    score, qbeg, qend, rbeg, rend, n_ops, gscore, grend = out
+    return score, qbeg, qend, rbeg, rend, ops, lens, n_ops, gscore, grend
+
+
+def sw_cigar_unbanded_plain(query, qlen, ref, params=(1, 4, 6, 1),
+                            max_ops=48):
+    """Plain PyTorch twin of the traceback kernel (any device), banded_sw
+    step for step: one loop step a query row keeps each cell's direction
+    (0 stop, 1 diag, 2 I, 3 D; ties diag > I > D; 0 where H <= 0), its
+    vertical-extend bit and its deletion distance j - gsrc (uint8) in
+    (N, Lq, Lr) tensors and the first maximum in row-major order; then the
+    traceback runs a fixed Lq + Lr steps of its state machine (mode 1, in
+    an I-run, forces a vertical step; a deletion run is one jump; past
+    max_ops ops the last slot takes every new op while its length keeps
+    adding), and the ops built end to start are reversed."""
+    match, mismatch, go, ge = params
+    N, Lq = query.shape
+    Lr = ref.shape[1]
+    dev = query.device
+    oe = go + ge
+    i32, u8 = torch.int32, torch.uint8
+    query, qlen, ref = (t.to(i32) for t in (query, qlen, ref))
+    ecol = torch.arange(Lr, dtype=i32, device=dev)[None, :]
+    ref_ok = ref < 4
+    zcol = torch.zeros((N, 1), dtype=i32, device=dev)
+    negcol = torch.full((N, 1), NEG, dtype=i32, device=dev)
+    exstart = torch.full((N, 1), -1, dtype=i32, device=dev)
+    H = torch.zeros((N, Lr + 1), dtype=i32, device=dev)
+    V = torch.full((N, Lr + 1), NEG, dtype=i32, device=dev)
+    dirs = torch.zeros((N, Lq, Lr), dtype=u8, device=dev)
+    vexts = torch.zeros((N, Lq, Lr), dtype=u8, device=dev)
+    ddists = torch.zeros((N, Lq, Lr), dtype=u8, device=dev)
+    bs = torch.zeros(N, dtype=i32, device=dev)
+    bi, bj, gs, gj = (torch.zeros_like(bs) for _ in range(4))
+    last_row = (qlen - 1).clamp(0, Lq - 1)
+    for i in range(Lq):
+        qc = query[:, i:i + 1]
+        sub = torch.where((qc < 4) & ref_ok,
+                          torch.where(qc == ref, match, -mismatch),
+                          -1).to(i32)
+        diag = sub + H[:, :-1]
+        Vr = torch.maximum(V[:, 1:] - ge, H[:, 1:] - oe)
+        vext = V[:, 1:] - ge >= H[:, 1:] - oe
+        Ht = torch.clamp_min(torch.maximum(diag, Vr), 0)
+        run = torch.cummax((Ht + ge * ecol) * Lr + ecol, dim=1).values
+        run_ex = torch.cat([exstart, run[:, :-1]], dim=1)
+        gmax = torch.where(run_ex >= 0,
+                           torch.div(run_ex, Lr, rounding_mode="floor"), NEG)
+        gsrc = torch.where(run_ex >= 0, torch.remainder(run_ex, Lr), 0)
+        F = gmax - go - ge * ecol
+        Hr = torch.maximum(Ht, F)
+        pos = Hr > 0
+        d = torch.where((Hr == F) & pos, 3, 0)
+        d = torch.where((Hr == Vr) & pos, 2, d)
+        d = torch.where((Hr == diag) & pos, 1, d)
+        valid = (i < qlen)[:, None]
+        Hr = torch.where(valid, Hr, 0)
+        Vr = torch.where(valid, Vr, NEG)
+        dirs[:, i] = torch.where(valid, d, 0).to(u8)
+        vexts[:, i] = vext.to(u8)
+        ddists[:, i] = (ecol - gsrc).clamp(0, 255).to(u8)
+        rowmax, rowj = torch.max(Hr, dim=1)
+        rowj = rowj.to(i32)
+        better = rowmax > bs
+        bs = torch.where(better, rowmax, bs)
+        bi = torch.where(better, i, bi)
+        bj = torch.where(better, rowj, bj)
+        last = last_row == i
+        gs = torch.where(last, rowmax, gs)
+        gj = torch.where(last, rowj, gj)
+        H = torch.cat([zcol, Hr], dim=1)
+        V = torch.cat([negcol, Vr], dim=1)
+
+    dirs, vexts, ddists = (a.reshape(N, Lq * Lr) for a in (dirs, vexts,
+                                                           ddists))
+    i, j = bi.clone(), bj.clone()
+    mode = torch.zeros_like(bi)
+    kop = torch.zeros_like(bi)
+    done = torch.zeros(N, dtype=torch.bool, device=dev)
+    ops = torch.full((N, max_ops), -1, dtype=i32, device=dev)
+    lens = torch.zeros((N, max_ops), dtype=i32, device=dev)
+    for _ in range(Lq + Lr):
+        cell = (i.clamp(0, Lq - 1) * Lr + j.clamp(0, Lr - 1)).long()[:, None]
+        d = dirs.gather(1, cell)[:, 0].to(i32)
+        ve = vexts.gather(1, cell)[:, 0] > 0
+        dd = ddists.gather(1, cell)[:, 0].to(i32)
+        oob = (i < 0) | (j < 0)
+        d_eff = torch.where(mode == 1, 2, torch.where(oob, 0, d))
+        now_done = (d_eff == 0) | done
+        is_diag = (d_eff == 1) & ~now_done
+        is_vert = (d_eff == 2) & ~now_done
+        is_horiz = (d_eff == 3) & ~now_done
+        op = torch.where(is_diag, 0, torch.where(is_vert, 1, 2)).to(i32)
+        step_len = torch.where(is_horiz, dd.clamp_min(1), 1)
+        prev_k = (kop - 1).clamp(0, max_ops - 1).long()[:, None]
+        prev_op = ops.gather(1, prev_k)[:, 0]
+        merge = (kop > 0) & (prev_op == op) & ~now_done
+        write_k = torch.where(merge[:, None], prev_k,
+                              kop.clamp(0, max_ops - 1).long()[:, None])
+        ops.scatter_(1, write_k, torch.where(
+            now_done, ops.gather(1, write_k)[:, 0], op)[:, None])
+        lens.scatter_add_(1, write_k,
+                          torch.where(now_done, 0, step_len)[:, None])
+        kop = torch.where(now_done | merge, kop, kop + 1)
+        mode2 = torch.where(is_vert & ve, 1, 0)
+        i2 = torch.where(is_diag | is_vert, i - 1, i)
+        j2 = torch.where(is_diag, j - 1, torch.where(is_horiz, j - step_len,
+                                                     j))
+        i = torch.where(now_done, i, i2).to(i32)
+        j = torch.where(now_done, j, j2).to(i32)
+        mode = torch.where(now_done, mode, mode2).to(i32)
+        done = now_done
+    src = kop[:, None] - 1 - torch.arange(max_ops, dtype=i32, device=dev)
+    src_c = src.clamp(0, max_ops - 1).long()
+    ops_f = torch.where(src >= 0, ops.gather(1, src_c), -1).to(torch.int8)
+    lens_f = torch.where(src >= 0, lens.gather(1, src_c), 0).to(i32)
+    return (bs, i + 1, bi + 1, j + 1, bj + 1, ops_f, lens_f, kop, gs,
+            gj + 1)

@@ -8,7 +8,9 @@ multiplicatively within a cluster].  The reference pins: min total weight
 The sweep and the curve combination run on the run's device
 (sv/device.py: the ``sv_cluster`` kernel for cluster ids, then the
 per-cluster log-product curves); ``_combine`` is the host statement of
-one cluster's combination.
+one cluster's combination.  ``_cluster_breakpoints_host`` (with
+``cluster_order``) is the JAX package's host path, which no run of the
+port takes: a test holds the device sweep against it.
 """
 
 from __future__ import annotations
@@ -178,3 +180,85 @@ def cluster_breakpoints(
         ))
     calls.sort(key=lambda c: (c.tid1, c.pos1, c.tid2, c.pos2))
     return calls
+
+
+def _cluster_breakpoints_host(
+    evidence: List[Breakpoint],
+    min_weight: int = 4,
+    trim: float = 0.0,
+) -> List[SVCall]:
+    groups: Dict[Tuple, List[Breakpoint]] = {}
+    for bp in evidence:
+        groups.setdefault(
+            (bp.svtype, bp.tid1, bp.tid2, bp.strand1, bp.strand2), []
+        ).append(bp)
+    calls: List[SVCall] = []
+    for key, items in groups.items():
+        svtype, tid1, tid2, s1, s2 = key
+        items.sort(key=lambda b: b.start1)
+        cluster: List[Breakpoint] = []
+
+        def flush():
+            if not cluster:
+                return
+            w = sum(b.weight for b in cluster)
+            # lumpy -m is minimum weight within a single sample
+            # (bin/speedseq:1242): pooled cross-sample evidence alone must
+            # not produce a call no sample individually supports
+            per_sample: Dict[int, int] = {}
+            for b in cluster:
+                per_sample[b.sample] = per_sample.get(b.sample, 0) + b.weight
+            if max(per_sample.values()) < min_weight:
+                return
+            pos1, ci1, ci195, pr1 = _combine(
+                [(b.start1, b.prob1) for b in cluster], trim=trim
+            )
+            pos2, ci2, ci295, pr2 = _combine(
+                [(b.start2, b.prob2) for b in cluster], trim=trim
+            )
+            if svtype != BND and pos2 < pos1:
+                pos1, pos2 = pos2, pos1
+                ci1, ci2 = ci2, ci1
+                ci195, ci295 = ci295, ci195
+                pr1, pr2 = pr2, pr1
+            sr = sum(b.weight for b in cluster if b.is_split)
+            pe = w - sr
+            ss: Dict[int, int] = {}
+            for b in cluster:
+                ss[b.sample] = ss.get(b.sample, 0) + b.weight
+            calls.append(
+                SVCall(
+                    svtype=svtype, tid1=tid1, pos1=pos1, strand1=s1,
+                    cipos=ci1, cipos95=ci195, prpos=pr1,
+                    tid2=tid2, pos2=pos2, strand2=s2,
+                    ciend=ci2, ciend95=ci295, prend=pr2,
+                    su=w, pe=pe, sr=sr, sample_support=ss,
+                    imprecise=(sr == 0),
+                )
+            )
+
+        cur_end1 = cur_lo2 = cur_hi2 = None
+        for b in cluster_order(items):
+            e1 = b.start1 + len(b.prob1)
+            lo2, hi2 = b.start2, b.start2 + len(b.prob2)
+            if (
+                cluster
+                and b.start1 < cur_end1
+                and lo2 < cur_hi2
+                and hi2 > cur_lo2
+            ):
+                cluster.append(b)
+                cur_end1 = max(cur_end1, e1)
+                cur_lo2 = min(cur_lo2, lo2)
+                cur_hi2 = max(cur_hi2, hi2)
+            else:
+                flush()
+                cluster = [b]
+                cur_end1, cur_lo2, cur_hi2 = e1, lo2, hi2
+        flush()
+    calls.sort(key=lambda c: (c.tid1, c.pos1, c.tid2, c.pos2))
+    return calls
+
+
+def cluster_order(items: List[Breakpoint]) -> List[Breakpoint]:
+    return sorted(items, key=lambda b: (b.start1, b.start2))

@@ -9,6 +9,10 @@
   windows of 320 among them), plus codes -1, 4 and 5 in query and window,
   qlen 0, 1 and Lq, and deletions longer than the Pallas kernels' 64-column
   cap that the unbanded DP must take;
+- ``cigar_lanes``: ``unbanded_lanes`` plus the traceback DP's own corners
+  (an all-zero lane, deletions of 130..200 columns between two short
+  halves, insertion runs of 8..20 bases, lanes of more than 48 ops when
+  gaps are cheap) at Lq <= Lr <= 256;
 - ``random_sites``: random per-site observations, qualities, samples,
   placements and strands with 1..max_alts live alleles per site.
 """
@@ -63,6 +67,54 @@ def unbanded_lanes(Lq: int, Lr: int, seed: int, n_edge: int = 52):
                        for k, d in enumerate(dels)]).astype(np.int32)
         parts.append((q4, np.full(len(dels), Lq, np.int32), r4))
     return tuple(np.concatenate(a) for a in zip(*parts))
+
+
+def cigar_lanes(Lq: int, Lr: int, seed: int):
+    """(query, qlen, ref) int32 numpy arrays for the traceback DP
+    (``ops/sw_unbanded.py:sw_cigar_unbanded``) at Lq <= Lr <= 256:
+    ``unbanded_lanes``, then an all-N read, a read that mismatches its
+    window everywhere (both all-zero lanes), 8 lanes of two 24-base halves
+    of an exact placement around 130..200 deleted window bases (the
+    deletion pays at a gap extension of 0), 8 lanes of an exact placement
+    with 8..20 inserted bases at its middle (an I-run), and 8 lanes of 2-bp
+    indels every 4 bases (more than 48 ops at open 1, extension 1)."""
+    q, ql, r = unbanded_lanes(Lq, Lr, seed=seed)
+    rng = np.random.default_rng(seed + 11)
+    n = 26
+    q2 = np.full((n, Lq), 4, np.int32)
+    ql2 = np.full(n, Lq, np.int32)
+    r2 = rng.integers(0, 4, (n, Lr)).astype(np.int32)
+    q2[1] = (r2[1, :Lq] + 1) % 4                   # mismatches everywhere
+    for k, d in enumerate(np.linspace(130, 200, 8).astype(int)):
+        h = min(24, (Lr - 4 - d) // 2, Lq // 2)
+        if h < 8:
+            continue
+        row = r2[2 + k]
+        a = np.concatenate([row[2:2 + h], row[2 + h + d:2 + 2 * h + d]])
+        q2[2 + k, :len(a)] = a
+        ql2[2 + k] = len(a)
+    for k, m in enumerate(range(8, 24, 2)):
+        row = r2[10 + k]
+        h = (Lq - m) // 2
+        a = np.concatenate([row[4:4 + h], rng.integers(0, 4, m),
+                            row[4 + h:4 + Lq - m]])[:Lq]
+        q2[10 + k, :len(a)] = a
+        ql2[10 + k] = len(a)
+    for k in range(8):
+        row, parts, j, ins = r2[18 + k], [], 2 + k, k % 2 == 0
+        while sum(len(p) for p in parts) < Lq and j + 6 < Lr:
+            parts.append(row[j:j + 4])
+            j += 4
+            if ins:
+                parts.append(rng.integers(0, 4, 2))
+            else:
+                j += 2
+            ins = not ins
+        a = np.concatenate(parts)[:Lq]
+        q2[18 + k, :len(a)] = a
+        ql2[18 + k] = len(a)
+    return (np.concatenate([q, q2]), np.concatenate([ql, ql2]),
+            np.concatenate([r, r2]))
 
 
 def random_sites(seed: int, S: int, R: int, n_samples: int,

@@ -184,14 +184,21 @@ def test_hap_scan_cuda_matches_cpu(seed):
 
 @pytest.mark.parametrize("Lq,Lr,params", [
     (150, 192, BWA), (250, 320, BWA), (300, 1024, BWA), (150, 200, BWA),
-    (250, 320, CHEAP_GAP), (180, 256, BWA)],
+    (250, 320, CHEAP_GAP), (180, 256, BWA), (1000, 1088, BWA),
+    (300, 2112, BWA), (300, 4160, CHEAP_GAP), (64, 20000, BWA),
+    (64, 32768, BWA)],
     ids=["150x192", "250x320", "300x1024", "150x200-pad",
-         "250x320-cheap-gap", "180x256-long-deletions"])
+         "250x320-cheap-gap", "180x256-long-deletions", "wide-1000x1088",
+         "wide-300x2112", "wide-300x4160-cheap-gap",
+         "wide-64x20000-device-memory-row", "wide-64x32768-width-limit"])
 def test_unbanded_kernel_matches_twin(Lq, Lr, params):
     """ssq_sw_unbanded_score against its twin on the card, all five
     outputs bit-equal: var's shape (150 x 192), 250 bp reads (250 x 320),
-    the widest window, a width with padding columns, cheap gaps, and
-    deletions past the Pallas cap (utils/var_cases.unbanded_lanes)."""
+    the widest narrow window, a width with padding columns, cheap gaps,
+    deletions past the Pallas cap (utils/var_cases.unbanded_lanes), and
+    the wide kernel: 1,000 bp reads (1088), 2112 and 4160 (rows in shared
+    memory), 20,000 (a row a block cannot hold, in device memory) and
+    the width limit at bwa scoring (32,768)."""
     _need_card()
     from speedseq_tpu_torch.ops import sw_unbanded
     from speedseq_tpu_torch.utils.var_cases import unbanded_lanes
@@ -231,10 +238,12 @@ def test_unbanded_kernel_from_four_threads():
 
 
 def test_unbanded_kernel_refuses_what_it_cannot_take():
-    """On a CUDA tensor the wrapper raises for Lr > 1024 and for Lq > Lr,
-    launching nothing (no fallback to the twin), and var's call_window on
-    cuda fails with DeviceError on a window of 1,000 bp reads (Lr 1088),
-    which the CPU twin takes (tests/test_torch_var.py)."""
+    """On a CUDA tensor the wrapper raises past the width limit (32,768 at
+    bwa scoring) and for Lq > Lr, launching nothing (no fallback to the
+    twin), and takes every width below: var's call_window on cuda, on a
+    window of 1,000 bp reads (Lr 1088: the wide kernel, one launch), gives
+    the CPU twin's calls (tests/test_torch_var.py's long-reads-mnp
+    window)."""
     _need_card()
     from speedseq_tpu_torch.formats.sam import SAMRecord
     from speedseq_tpu_torch.ops import sw_unbanded
@@ -243,12 +252,11 @@ def test_unbanded_kernel_refuses_what_it_cannot_take():
 
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")
     before = dict(sw_unbanded.LAUNCHES)
-    with pytest.raises(ValueError, match="Lr <= 1024"):
-        sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 1025))
+    with pytest.raises(ValueError, match="Lr <= 32768"):
+        sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 32769))
     with pytest.raises(ValueError, match="Lq <= Lr"):
         sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 149))
     assert sw_unbanded.LAUNCHES == before
-    # tests/test_torch_var.py's long-reads-mnp window
     g = np.random.default_rng(13).integers(0, 4, 1000).astype(np.uint8)
     ref = "".join("ACGT"[c] for c in g)
     alt = (ref[:500] + "".join("ACGT"[(c + 1) % 4] for c in g[500:502])
@@ -257,10 +265,85 @@ def test_unbanded_kernel_refuses_what_it_cannot_take():
                        pos=0, mapq=60, cigar=[(0, 1000)], mtid=-1, mpos=-1,
                        tlen=0, seq=alt if i < 6 else ref, qual="I" * 1000),
              0) for i in range(12)]
-    with pytest.raises(caller.DeviceError, match="Lr <= 1024"):
-        caller.call_window(g, build_pileup(recs, 0, len(g)), 1,
-                           caller.CallerConfig(min_alternate_fraction=0.1),
-                           device="cuda")
+    calls = {}
+    for dev in ("cpu", "cuda"):
+        n0 = sw_unbanded.LAUNCHES["sw_unbanded_score"]
+        calls[dev] = caller.call_window(
+            g, build_pileup(recs, 0, len(g)), 1,
+            caller.CallerConfig(min_alternate_fraction=0.1), device=dev)
+        launched = sw_unbanded.LAUNCHES["sw_unbanded_score"] - n0
+        assert launched == (1 if dev == "cuda" else 0)
+    assert len(calls["cuda"]) == len(calls["cpu"]) == 1
+    assert calls["cuda"][0].alts == [alt[500:502]]
+    for a, b in zip(calls["cuda"], calls["cpu"]):
+        assert (a.offset, a.ref, a.alts, a.types, a.lengths) == (
+            b.offset, b.ref, b.alts, b.types, b.lengths)
+        for f in ("gt", "gq", "dp", "ro", "ao", "qr", "qa", "rpl", "rpr",
+                  "saf", "sar"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)
+        np.testing.assert_allclose(a.gl, b.gl, atol=1e-4, rtol=0)
+        assert a.qual == pytest.approx(b.qual, abs=1e-4)
+
+
+@pytest.mark.parametrize("Lq,Lr,params,n", [
+    (100, 204, BWA, 0), (100, 204, CHEAP_GAP, 0), (100, 204, (1, 4, 6, 0), 0),
+    (150, 254, BWA, 0), (150, 254, CHEAP_GAP, 0), (150, 254, (1, 4, 6, 0), 0),
+    (150, 254, BWA, 32768), (300, 200, BWA, 64), (1792, 256, CHEAP_GAP, 8)],
+    ids=["100x204", "100x204-cheap-gap", "100x204-ext-0", "150x254",
+         "150x254-cheap-gap", "150x254-ext-0", "slice-32768x150x254",
+         "query-longer-300x200", "1792x256-most-shared-memory"])
+def test_unbanded_cigar_kernel_matches_twin(Lq, Lr, params, n):
+    """ssq_sw_unbanded_cigar against its twin on the card, all ten
+    outputs bit-equal: utils/var_cases.cigar_lanes (all-zero lanes,
+    qlen 0, 1 and Lq, codes -1, 4 and 5, two-letter ties, deletions of
+    65..200 columns, I-runs, more than 48 ops), the slice's launch
+    (32,768 lanes of the edge cases at 150 x 254), a query longer than its
+    window, and the tallest query the shared-memory code table holds."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import cigar_lanes
+
+    rng = np.random.default_rng(n)
+    if n == 0:
+        host = cigar_lanes(Lq, Lr, seed=Lq + Lr)
+    elif Lq <= Lr:
+        host = sw_edge_cases(n, Lq, Lr, seed=n)
+    else:     # random codes 0-4, every other window holding 180 query bases
+        q = rng.integers(0, 5, (n, Lq)).astype(np.int32)
+        r = rng.integers(0, 5, (n, Lr)).astype(np.int32)
+        r[1::2, 10:190] = q[1::2, 50:230]
+        host = q, rng.integers(-2, Lq + 4, n).astype(np.int32), r
+    q, ql, r = (torch.from_numpy(a).cuda() for a in host)
+    before = sw_unbanded.LAUNCHES["sw_unbanded_cigar"]
+    got = sw_unbanded.sw_cigar_unbanded(q, ql, r, params)
+    torch.cuda.synchronize()
+    assert sw_unbanded.LAUNCHES["sw_unbanded_cigar"] == before + 1
+    want = sw_unbanded.sw_cigar_unbanded_plain(q, ql, r, params)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if n == 0:
+        assert int(want[7].max()) > 48 or params != CHEAP_GAP
+
+
+def test_unbanded_cigar_kernel_refuses_what_it_cannot_take():
+    """On a CUDA tensor the traceback DP raises for Lr > 256 (as on the
+    CPU: the deletion distance is a uint8), for Lq > 1792 (the kernel's
+    code table in shared memory) and for max_ops > 64, launching
+    nothing."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device="cuda")
+    before = dict(sw_unbanded.LAUNCHES)
+    with pytest.raises(ValueError, match="Lr <= 256"):
+        sw_unbanded.sw_cigar_unbanded(z(2, 150), z(2), z(2, 257))
+    with pytest.raises(ValueError, match="Lq <= 1792"):
+        sw_unbanded.sw_cigar_unbanded(z(2, 1793), z(2), z(2, 256))
+    with pytest.raises(ValueError, match="max_ops <= 64"):
+        sw_unbanded.sw_cigar_unbanded(z(2, 150), z(2), z(2, 256),
+                                      max_ops=65)
+    assert sw_unbanded.LAUNCHES == before
 
 
 @pytest.mark.parametrize("kind,n,trim", [
@@ -769,6 +852,38 @@ def test_fm_find_seeds_cuda_matches_cpu(fm_case, dense):
     assert int(got.valid.sum()) > 0
     for a, b in zip(chain_seeds(got, 151), chain_seeds(want, 151)):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense-sa", "sa-walk"])
+def test_align_candidates_cuda_matches_cpu(fm_case, dense):
+    """The unfused API on cuda against cpu: align_candidates (n_chains 4:
+    one launch of ssq_sw_unbanded_cigar at 2,400 lanes x 151 x 255) field
+    for field, then select_alignments' alignments (MD strings included)
+    equal."""
+    _need_card()
+    from speedseq_tpu_torch.align import core
+    from speedseq_tpu_torch.index.fm import FMIndex
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    _, reads, lens, fms = fm_case
+    fm = fms[dense]
+    fm_cpu = FMIndex(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                       for t in fm))
+    before = sw_unbanded.LAUNCHES["sw_unbanded_cigar"]
+    got = core.align_candidates(fm, torch.from_numpy(reads).cuda(),
+                                torch.from_numpy(lens).cuda())
+    torch.cuda.synchronize()
+    assert sw_unbanded.LAUNCHES["sw_unbanded_cigar"] == before + 1
+    want = core.align_candidates(fm_cpu, torch.from_numpy(reads),
+                                 torch.from_numpy(lens))
+    for f, a, b in zip(want._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+    assert int((want.score > 0).sum()) > 400
+    a = core.select_alignments(got, reads, lens)
+    b = core.select_alignments(want, reads, lens)
+    assert [(tuple(p), s and tuple(s)) for p, s in a] == \
+        [(tuple(p), s and tuple(s)) for p, s in b]
+    assert sum(p.aligned for p, _ in a) > 400
 
 
 def test_fm_align_cuda_matches_cpu(fm_case, tmp_path):

@@ -263,8 +263,8 @@ def test_call_window_matches_jax(case):
 def test_long_read_window_scans_past_the_kernel_width(monkeypatch):
     """A window of 1,000 bp reads scans its haplotypes at Lr = 1088: on the
     CPU the twin takes that width (its calls equal the JAX package's in
-    test_call_window_matches_jax[long-reads-mnp]); on cuda the kernel's
-    shape check raises and the run fails (tests/test_torch_gpu.py)."""
+    test_call_window_matches_jax[long-reads-mnp]); on cuda the wide scan
+    kernel takes it and gives the twin's calls (tests/test_torch_gpu.py)."""
     from speedseq_tpu_torch.align import sw as tsw
 
     widths, real = [], tsw.banded_sw_score
