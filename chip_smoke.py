@@ -22,12 +22,16 @@ sw_cigar at the main path's 16,384, 1,024 and 256 x 151 x 256, the same
 lane counts x 150 x 256 and on the inputs one batch of the align cell
 gives it; sw_unbanded_score on hap_scan_lanes, on 280 lanes of var's 150
 x 192 and on 250 x 320 (the narrow kernel, with each kernel's SASS hash
-by library); sv_combine_logsum on both sides of the SV_PILE
-pile and of 2,000 rows of random evidence; with the SASS loops of both
-SW kernels (registers, shared bytes, and each row loop's instructions,
-shuffles, loads and stores) and the device time alone and per kernel of
-the versions without host syncs.  Then the
-nvidia-smi line and the last line.
+by library) and sw_unbanded_cigar on the unfused phase's launch (32,768
+x 150 x 254, captured from align_candidates) and on cigar_lanes (with
+its SASS loops); sv_combine_logsum on both sides of the SV_PILE pile and
+of 2,000 rows of random evidence (and, where a DIR also holds an
+sv_combine.py, that wrapper against this one); with the SASS loops of
+both banded SW kernels (registers, shared bytes, and each row loop's
+instructions, shuffles, loads and stores) and the device time alone and
+per kernel of the versions without host syncs.  --ablate takes any of
+the five sources (utils/cigar_ablations.py writes the traceback DP's).
+Then the nvidia-smi line and the last line.
 
 Phases, each printing one JSON line:
 
@@ -142,7 +146,8 @@ Phases, each printing one JSON line:
            its twin (bit-equal) on
            both sides of the sv run's cluster pass and of the pile, with
            index_add_ of the materialised log rows as the library
-           yardstick
+           yardstick, the wrapper's host time step by step, and the bound
+           with the largest cluster's chain of adds (chain_ms)
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check exits non-zero; with no
@@ -170,6 +175,7 @@ INT32_ISSUE_PER_SM = 128
 POPC_PER_SM = 16                   # popcounts per SM per clock (sm_90)
 MUFU_PER_SM = 16                   # MUFU (lg2, ex2, rcp) per SM per clock
 FP32_PER_SM = 128                  # fp32 adds per SM per clock
+FADD_LATENCY = 4                   # clocks from one dependent FADD to the next
 GENOME = (2_500_000, 2_000_000, 1_500_000)   # contig lengths, 6 Mbp
 PAIRS, BATCH = 65_536, 8_192       # align phase: batch = a 16,384-read step
 PARITY_PAIRS, PARITY_BATCH = 2_048, 1_024
@@ -614,6 +620,7 @@ def _earlier_libs(dirs):
     sweep on gid segment starts; c292ab1's cigar kernel with its direction
     scratch ``dirs`` after max_ops)."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
 
     from speedseq_tpu_torch.ops import (fm_search, sv_cluster, sv_combine,
                                         sw_banded, sw_unbanded)
@@ -630,9 +637,10 @@ def _earlier_libs(dirs):
     MODS = {"fm_search": (fm_search, ("ssq_fm_smem", "ssq_fm_sa_walk")),
             "sv_cluster": (sv_cluster, ("ssq_sv_cluster",)),
             "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score")),
-            "sw_unbanded": (sw_unbanded, ("ssq_sw_unbanded_score",)),
+            "sw_unbanded": (sw_unbanded, ("ssq_sw_unbanded_score",
+                                          "ssq_sw_unbanded_cigar")),
             "sv_combine": (sv_combine, ("ssq_sv_combine_logsum",))}
-    out = {stem: [] for stem in MODS}
+    todo = []
     for d in dirs:
         for stem, (mod, fns) in MODS.items():
             path = os.path.abspath(os.path.join(d, stem + ".cu"))
@@ -644,14 +652,19 @@ def _earlier_libs(dirs):
                     for f in fns}
             check(all(same[f] or f in earlier for f in fns),
                   f"{path}: an unknown C interface")
-            info = {}
-            lib = ctypes.CDLL(build_library(path, info, True))
-            for f in fns:
-                getattr(lib, f).argtypes = (
-                    getattr(mod._load(), f).argtypes if same[f]
-                    else earlier[f])
-            out[stem].append((os.path.basename(os.path.normpath(d)), lib,
-                              all(same.values()), _ptxas_lines(info)))
+            todo.append((d, stem, mod, fns, path, same, {}))
+    # one nvcc a source, all started together
+    with ThreadPoolExecutor(max(1, len(todo))) as pool:
+        sos = list(pool.map(lambda x: build_library(x[4], x[6], True), todo))
+    out = {stem: [] for stem in MODS}
+    for (d, stem, mod, fns, path, same, info), so in zip(todo, sos):
+        lib = ctypes.CDLL(so)
+        for f in fns:
+            getattr(lib, f).argtypes = (
+                getattr(mod._load(), f).argtypes if same[f]
+                else earlier[f])
+        out[stem].append((os.path.basename(os.path.normpath(d)), lib,
+                          all(same.values()), _ptxas_lines(info)))
     return out
 
 
@@ -835,12 +848,16 @@ def phase_against(work, fasta, genome, args, dirs, clock_hz, n_sms):
                     ablated)
     if earlier["fm_search"]:
         _against_fm(work, fasta, genome, args, earlier["fm_search"])
+    sv = (_sv_aligned(work, args)
+          if earlier["sv_cluster"] or earlier["sv_combine"] else None)
     if earlier["sv_cluster"]:
-        _against_sv(work, args, earlier["sv_cluster"])
+        _against_sv(sv, args, earlier["sv_cluster"])
     if earlier["sw_unbanded"]:
-        _against_unbanded(args, earlier["sw_unbanded"])
+        _against_unbanded(work, fasta, genome, args, earlier["sw_unbanded"],
+                          clock_hz, n_sms, ablated)
     if earlier["sv_combine"]:
-        _against_combine(args, earlier["sv_combine"])
+        _against_combine(sv, args, earlier["sv_combine"], ablated,
+                         dirs + (args.ablate or []))
     emit({"phase": "against", "ptxas": {
         "earlier": {stem: {name: lines for name, _, _, lines in libs}
                     for stem, libs in earlier.items()},
@@ -1039,8 +1056,9 @@ def _against_fm(work, fasta, genome, args, earlier):
     torch.cuda.empty_cache()
 
 
-def _against_sv(work, args, earlier):
-    """The sweep of each library in turns (phase_against)."""
+def _against_sv(sv, args, earlier):
+    """The sweep of each library in turns (phase_against), on the sv
+    phase's evidence (``sv``: _sv_aligned's) and two synthetic shapes."""
     import numpy as np
     import torch
 
@@ -1076,7 +1094,6 @@ def _against_sv(work, args, earlier):
         check(rc == 0, f"sv_cluster launch failed ({rc})")
         return [out]
 
-    sv = _sv_aligned(work, args)
     for shape, cols in (("sv_phase", _sweep_cols(sv)),
                         ("genome", sv_cases.sweep_columns("genome",
                                                           seed=args.seed)),
@@ -1099,28 +1116,43 @@ def _against_sv(work, args, earlier):
                   if name in synced}})
 
 
-def _against_unbanded(args, earlier):
+def _against_unbanded(work, fasta, genome, args, earlier, clock_hz, n_sms,
+                      unchecked=()):
     """The unbanded scan of each library in turns on hap_scan_lanes
     (150 x 192), on 280 lanes of var's shape (about one var call) and on
-    250 bp reads (250 x 320), with the device time, and the SASS hash of
-    each library's scan kernels (phase_against)."""
+    250 bp reads (250 x 320); the traceback DP (ssq_sw_unbanded_cigar) in
+    turns on the unfused phase's launch (32,768 x 150 x 254, captured
+    from align_candidates) and on cigar_lanes (150 x 254, cheap gaps);
+    with the device time, and the SASS hash of each library's kernels
+    (phase_against).  The outputs of the libraries named in ``unchecked``
+    (--ablate) are not held to the twins."""
     import re
 
     import torch
 
     from speedseq_tpu_torch.ops import sw_unbanded
-    from speedseq_tpu_torch.utils.var_cases import (hap_scan_lanes,
+    from speedseq_tpu_torch.utils.var_cases import (cigar_lanes,
+                                                    hap_scan_lanes,
                                                     unbanded_lanes)
 
-    libs = earlier + [("this", sw_unbanded._load(), True, [])]
+    libs = earlier + [("this", sw_unbanded._load(), True,
+                       _ptxas_lines(sw_unbanded.BUILD_INFO))]
     # each kernel's SASS hash by its name and template width, per library
     # (equal hashes: identical code)
     short = lambda fn: "".join(g or "" for g in re.search(
         r"\d(sw_unbanded_(?:wide_|cigar_)?kernel)(ILi\d+E)?", fn).groups())
+    sass = {name: _sass_loops(lib._name, "sw_unbanded")
+            for name, lib, _, _ in libs}
     emit({"phase": "against", "kernel": "sw_unbanded_score", "sass_sha1": {
-        name: {short(fn): info["sha1"] for fn, info in
-               _sass_loops(lib._name, "sw_unbanded").items()}
-        for name, lib, _, _ in libs}})
+        name: {short(fn): info["sha1"] for fn, info in funcs.items()}
+        for name, funcs in sass.items()}, "ptxas": {
+        name: lines for name, _, _, lines in libs}})
+    # the traceback kernel's loops with shuffles (the row loop, the walk)
+    emit({"phase": "against", "kernel": "sw_unbanded_cigar", "sass_loops": {
+        name: [{"instructions": lp["instructions"], "ops": lp["ops"]}
+               for fn, info in funcs.items() if "cigar" in fn
+               for lp in info["loops"]]
+        for name, funcs in sass.items()}})
     stream = torch.cuda.current_stream().cuda_stream
     for label, host in (
             ("hap_scan_lanes, 150 x 192", hap_scan_lanes(args.seed)),
@@ -1142,13 +1174,86 @@ def _against_unbanded(args, earlier):
 
         _in_turns("sw_unbanded_score", f"{label}, {n} lanes",
                   [(name, lambda l=lib: run(l)) for name, lib, _, _ in libs],
-                  want, queued=[name for name, _, _, _ in libs])
+                  want, queued=[name for name, _, _, _ in libs],
+                  unchecked=unchecked)
+    unfused = _capture_unfused_launch(fasta, genome, args)
+    for label, host, params in (
+            ("unfused launch", unfused, (1, 4, 6, 1)),
+            ("cigar_lanes, 150 x 254, cheap gaps",
+             cigar_lanes(150, 254, seed=args.seed), (1, 4, 1, 1))):
+        q, ql, r = (torch.as_tensor(a).int().cuda() for a in host)
+        n, Lq, Lr = q.shape[0], q.shape[1], r.shape[1]
+        w = sw_unbanded.sw_cigar_unbanded_plain(q, ql, r, params)
+        want = list(w[:5]) + [w[7], w[8], w[9], w[5], w[6]]
+        out = torch.empty((8, n), dtype=torch.int32, device="cuda")
+        ops = torch.empty((n, 48), dtype=torch.int8, device="cuda")
+        lens = torch.empty((n, 48), dtype=torch.int32, device="cuda")
+
+        def run_cigar(lib):
+            rc = lib.ssq_sw_unbanded_cigar(
+                q.data_ptr(), ql.data_ptr(), r.data_ptr(), n, Lq, Lr,
+                *params, 48, out.data_ptr(), n, ops.data_ptr(),
+                lens.data_ptr(), stream)
+            check(rc == 0, f"sw_unbanded_cigar launch failed ({rc})")
+            return list(out) + [ops, lens]
+
+        runs = [(name, lambda l=lib: run_cigar(l)) for name, lib, _, _ in libs]
+        _in_turns("sw_unbanded_cigar", f"{label}, {n} x {Lq} x {Lr}", runs,
+                  want, queued=[name for name, _ in runs],
+                  unchecked=unchecked)
+        emit({"phase": "against", "kernel": "sw_unbanded_cigar",
+              "case": f"{label}, {n} x {Lq} x {Lr}",
+              "bound": _cigar_unbanded_bound(q, ql, r, clock_hz, n_sms),
+              "profiler_us_per_call": {
+                  name: _kernel_split(run, pattern=r"sw_unbanded_\w+")
+                  for name, run in runs}})
+        del want, w
+        torch.cuda.empty_cache()
 
 
-def _against_combine(args, earlier):
+def _unfused_reads(genome, args):
+    """The unfused phase's input: read 1 of the align cell's first
+    UNFUSED_READS pairs, (simulated pairs, reads (B, 150) int32, lengths)."""
+    import numpy as np
+
+    from speedseq_tpu_torch.utils import synth
+
+    rd = synth.simulate(genome, PAIRS, read_len=150, seed=args.seed,
+                        kill_frac=0.01)
+    B = UNFUSED_READS
+    return rd, rd.seq1[:B].astype(np.int32), np.full(B, 150, np.int32)
+
+
+def _capture_unfused_launch(fasta, genome, args):
+    """(query, qlen, ref) of the traceback DP's launch in align_candidates
+    on the unfused phase's reads (the FM index built if missing)."""
+    import torch
+
+    from speedseq_tpu_torch.align import core, pipeline
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    _, reads_np, lens_np = _unfused_reads(genome, args)
+    _, fm, _ = pipeline._load_fm(fasta, torch.device("cuda"), "fm")
+    got = {}
+    with _spying(sw_unbanded, "sw_cigar_unbanded", lambda q, ql, r, *a, **k:
+                 got.setdefault("args", tuple(t.clone() for t in (q, ql, r)))):
+        core.align_candidates(fm, torch.from_numpy(reads_np).cuda(),
+                              torch.from_numpy(lens_np).cuda(),
+                              n_chains=UNFUSED_CHAINS)
+    return got["args"]
+
+
+def _against_combine(sv, args, earlier, unchecked=(), dirs=()):
     """The member log-sum of each library in turns on both sides of the
-    SV_PILE pile and of 2,000 rows of random many-cluster evidence, with
-    the device time (phase_against)."""
+    sv run's cluster pass (the sv phase's evidence, ``sv``: _sv_aligned's),
+    of the SV_PILE pile and of 2,000 rows of random many-cluster evidence,
+    with the device time and the profiler's kernel time; where a DIR also
+    holds an sv_combine.py, that module's wrapper around its library in
+    turns against this checkout's wrapper (phase_against).  The outputs
+    of the libraries named in ``unchecked`` (--ablate) are not held to
+    the twin."""
+    import importlib.util
+
     import numpy as np
     import torch
 
@@ -1157,10 +1262,26 @@ def _against_combine(args, earlier):
     from speedseq_tpu_torch.sv.cluster import evidence_columns
     from speedseq_tpu_torch.utils import sv_cases
 
-    libs = earlier + [("this", sv_combine._load(), True, [])]
+    libs = earlier + [("this", sv_combine._load(), True,
+                       _ptxas_lines(sv_combine.BUILD_INFO))]
+    emit({"phase": "against", "kernel": "sv_combine_logsum", "ptxas": {
+        name: lines for name, _, _, lines in libs}})
+    wrappers = [("this", sv_combine.combine_logsum)]
+    for d in dirs:
+        path = os.path.join(d, "sv_combine.py")
+        name = os.path.basename(os.path.normpath(d))
+        lib = [l for n, l, _, _ in earlier if n == name]
+        if os.path.exists(path) and lib:
+            spec = importlib.util.spec_from_file_location(
+                f"speedseq_tpu_torch.ops._sv_combine_{name}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mod._lib = lib[0]
+            wrappers.insert(0, (name, mod.combine_logsum))
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(args.seed + 400)
-    for label, ev in (("pile", sv_cases.pile_evidence(rng, SV_PILE)),
+    for label, ev in (("sv run", _sv_evidence(sv)),
+                      ("pile", sv_cases.pile_evidence(rng, SV_PILE)),
                       ("random", sv_cases.random_evidence(rng, 2000))):
         calls = []
         with _spying(sv_combine, "combine_logsum",
@@ -1183,12 +1304,19 @@ def _against_combine(args, earlier):
                 check(rc == 0, f"sv_combine_logsum launch failed ({rc})")
                 return [acc]
 
-            _in_turns("sv_combine_logsum",
-                      f"{label}, side {side + 1}, {start.shape[0]} rows, "
-                      f"{lo.shape[0]} clusters",
-                      [(name, lambda l=lib: run(l))
-                       for name, lib, _, _ in libs],
-                      want, queued=[name for name, _, _, _ in libs])
+            case = (f"{label}, side {side + 1}, {start.shape[0]} rows, "
+                    f"{lo.shape[0]} clusters")
+            runs = [(name, lambda l=lib: run(l)) for name, lib, _, _ in libs]
+            _in_turns("sv_combine_logsum", case, runs, want,
+                      queued=[name for name, _ in runs], unchecked=unchecked)
+            emit({"phase": "against", "kernel": "sv_combine_logsum",
+                  "case": case, "profiler_us_per_call": {
+                      name: _kernel_split(r, pattern=r"combine_logsum_kernel")
+                      for name, r in runs}})
+            if len(wrappers) > 1:
+                _in_turns("sv_combine_logsum wrapper", case,
+                          [(name, lambda f=fn: [f(*a)])
+                           for name, fn in wrappers], want)
 
 
 def _ops_bound(int_ops, popc_ops, nbytes, clock_hz, n_sms):
@@ -1530,13 +1658,9 @@ def phase_unfused(work, fasta, genome, args, clock_hz, n_sms):
     from speedseq_tpu_torch.align.pairing import InsertDistro
     from speedseq_tpu_torch.formats.sam import FSUPPLEMENTARY, FUNMAP
     from speedseq_tpu_torch.ops import sw_unbanded
-    from speedseq_tpu_torch.utils import synth
 
-    rd = synth.simulate(genome, PAIRS, read_len=150, seed=args.seed,
-                        kill_frac=0.01)
+    rd, reads_np, lens_np = _unfused_reads(genome, args)
     B = UNFUSED_READS
-    reads_np = rd.seq1[:B].astype(np.int32)
-    lens_np = np.full(B, 150, np.int32)
     idx, fm, _ = pipeline._load_fm(fasta, torch.device("cuda"), "fm")
     reads = torch.from_numpy(reads_np).cuda()
     lens = torch.from_numpy(lens_np).cuda()
@@ -2204,20 +2328,25 @@ def _sv_aligned(work, args):
             "tb": tb, "aln": aln, "n_pairs": n_pairs, "align_s": align_s}
 
 
+def _sv_evidence(sv):
+    """The sv phase's evidence rows (_sv_aligned's BAM triple)."""
+    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
+
+    aln = sv["aln"]
+    stats = InsertStats.from_bam(aln + ".bam")
+    return collect_evidence([aln + ".discordants.bam"],
+                            [aln + ".splitters.bam"], [stats],
+                            ref_names=sv["names"])
+
+
 def _sweep_cols(sv):
     """The sweep's inputs (gid, s1, e1, lo2, hi2) of the sv phase's
     evidence, sorted as ``evidence_columns`` sorts them."""
     import numpy as np
 
     from speedseq_tpu_torch.sv.cluster import evidence_columns
-    from speedseq_tpu_torch.sv.evidence import InsertStats, collect_evidence
 
-    aln = sv["aln"]
-    stats = InsertStats.from_bam(aln + ".bam")
-    ev = collect_evidence([aln + ".discordants.bam"],
-                          [aln + ".splitters.bam"], [stats],
-                          ref_names=sv["names"])
-    _, gid, s1, l1, _, s2, l2, _ = evidence_columns(ev)
+    _, gid, s1, l1, _, s2, l2, _ = evidence_columns(_sv_evidence(sv))
     return tuple(np.asarray(c, np.int32)
                  for c in (gid, s1, s1 + l1, s2, s2 + l2))
 
@@ -2774,12 +2903,16 @@ def phase_unbanded_kernel(var_call, args, clock_hz, n_sms):
 
 def _combine_bound(first, sizes, lo, start, clen, curves, W, clock_hz,
                    n_sms):
-    """The least time of the member log-sum on these inputs: its logs (one
-    MUFU op each, at the cells inside a member's curve) or its fp32 adds
-    (members x W), over their rates, or its bytes (the cells inside each
-    member's curve, clipped to W, read once, as are the starts, lengths
-    and the (C,) first/sizes/lo; the (C, W) sums written).  The padding of
-    the (n, D) curves past a member's length is never read."""
+    """The least time of the member log-sum on these inputs, the largest
+    of: its logs (one MUFU op each, at the cells inside a member's curve)
+    or its fp32 adds (members x W) over their rates; its bytes (the cells
+    inside each member's curve, clipped to W, read once, as are the
+    starts, lengths and the (C,) first/sizes/lo; the (C, W) sums
+    written); and the chain of the largest cluster's adds, which the
+    fixed order makes dependent (FADD_LATENCY clocks a member).  The
+    padding of the (n, D) curves past a member's length is never read.
+    ``bound_ms_before_chain`` is the figure without the chain (printed
+    before this bound counted it)."""
     import numpy as np
 
     m, l, st, cl = (t.cpu().numpy().astype(np.int64)
@@ -2794,12 +2927,73 @@ def _combine_bound(first, sizes, lo, start, clen, curves, W, clock_hz,
     ms = {"logs": logs / (n_sms * MUFU_PER_SM) / clock_hz * 1e3,
           "adds": adds / (n_sms * FP32_PER_SM) / clock_hz * 1e3,
           "bytes": 4.0 * (logs + 2 * n + 3 * C + C * W)
-          / HBM_BYTES_PER_S * 1e3}
+          / HBM_BYTES_PER_S * 1e3,
+          "chain": float(m.max() if C else 0) * FADD_LATENCY / clock_hz
+          * 1e3}
     by = max(ms, key=ms.get)
+    before = max(("logs", "adds", "bytes"), key=ms.get)
     return {"logs": logs, "fp32_adds": adds, "logs_ms": ms["logs"],
             "adds_ms": ms["adds"], "bytes_ms": ms["bytes"],
-            "bound_ms": ms[by],
-            "bound_by": "bytes" if by == "bytes" else "operations"}
+            "chain_ms": ms["chain"], "bound_ms": ms[by], "bound_by": by,
+            "bound_ms_before_chain": ms[before],
+            "bound_by_before_chain": before}
+
+
+def _combine_wrapper_split(a, reps=200):
+    """Host microseconds a call of each step of ``combine_logsum`` on the
+    inputs ``a`` (perf_counter over ``reps`` calls, the queue drained
+    before each step): the input checks, the dtype/contiguity tests, the
+    output's allocation, the current-device query, the raw stream, one
+    launch through ctypes, and the whole wrapper; beside them the stream
+    object and the device context that 0b69706's wrapper took, and
+    converting first and sizes to int32 (what it did with the int64 ones
+    the sv run passes)."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sv_combine
+
+    first, sizes, lo, start, clen, curves, W = a
+    C, lib = lo.shape[0], sv_combine._load()
+    # the entry for the caller's first/sizes (int64 from bincount, or int32)
+    launch = (lib.ssq_sv_combine_logsum_i64 if first.dtype == torch.int64
+              else lib.ssq_sv_combine_logsum)
+    acc = torch.empty((C, W), dtype=torch.float32, device=lo.device)
+    ptrs = (first.data_ptr(), sizes.data_ptr(), lo.data_ptr(), C,
+            start.data_ptr(), clen.data_ptr(), curves.data_ptr(),
+            curves.shape[1], W, acc.data_ptr())
+    raw = torch.cuda.current_stream().cuda_stream
+
+    def device_context():
+        with torch.cuda.device(lo.device):
+            pass
+
+    steps = {
+        "check": lambda: sv_combine._check(*a),
+        "dtype_tests": lambda: [t.dtype == torch.int32 and t.is_contiguous()
+                                for t in a[:5]],
+        "empty": lambda: torch.empty((C, W), dtype=torch.float32,
+                                     device=lo.device),
+        "current_device": torch.cuda.current_device,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+            lo.device.index),
+        "current_stream_object": lambda: torch.cuda.current_stream(
+            lo.device).cuda_stream,
+        "device_context": device_context,
+        "to_int32_first_sizes": lambda: (first.to(torch.int32).contiguous(),
+                                         sizes.to(torch.int32).contiguous()),
+        "ctypes_launch": lambda: launch(*ptrs, raw),
+        "wrapper": lambda: sv_combine.combine_logsum(*a),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def _log_rows(first, sizes, lo, start, clen, curves, W):
@@ -2825,11 +3019,13 @@ def _log_rows(first, sizes, lo, start, clen, curves, W):
 def phase_combine_kernel(sv_calls, pile_calls, clock_hz, n_sms):
     """sv_combine_logsum against its twin on the card (bit-equal) on the
     inputs of the sv run's cluster pass (both sides) and of the SV_PILE
-    pile (both sides): kernel ms, device ms, the twin's ms on the card,
-    the bound, and as the library yardstick ``index_add_`` of the
-    materialised (n, W) log rows into (C, W) (not order-equal: its sum
-    order is the device's; the rows are made beforehand).  Returns the
-    kernels-line record (the sv run's first side)."""
+    pile (both sides): device ms, the twin's ms on the card, the bound
+    (with the largest cluster's chain of adds), the wrapper's host time
+    step by step, and the wrapper's ms in turns with the library
+    yardstick, ``index_add_`` of the materialised (n, W) log rows into
+    (C, W) (not order-equal: its sum order is the device's; the rows are
+    made beforehand).  Returns the kernels-line record (the sv run's first
+    side)."""
     import torch
 
     from speedseq_tpu_torch.ops import sv_combine
@@ -2851,7 +3047,6 @@ def phase_combine_kernel(sv_calls, pile_calls, clock_hz, n_sms):
             max_err = float((got - want).abs().max())
             check(bit_equal, f"sv_combine_logsum disagrees with its twin "
                   f"({label}, side {side + 1}: {max_err})")
-            ms = cuda_ms(lambda: kern(*a), reps=20)
             device_ms = cuda_ms(lambda: kern(*a), reps=20, queued=True)
             plain_ms = (cuda_ms(lambda: plain(*a), reps=3, warmup=1)
                         if label == "sv run" else
@@ -2860,7 +3055,13 @@ def phase_combine_kernel(sv_calls, pile_calls, clock_hz, n_sms):
             C, W = a[2].shape[0], a[6]
             lib = lambda: torch.zeros((C, W), device="cuda").index_add_(
                 0, cid, rows)
-            library_ms = cuda_ms(lib, reps=20)
+            # the wrapper and the yardstick in turns (both host-bound at
+            # the sv run), 100 calls a turn; each the mean of its turns
+            turns = {"ms": [], "library_ms": []}
+            for key in ("ms", "library_ms", "library_ms", "ms"):
+                turns[key].append(cuda_ms(
+                    (lambda: kern(*a)) if key == "ms" else lib, reps=100))
+            ms, library_ms = (sum(turns[k]) / 2 for k in ("ms", "library_ms"))
             lib_err = float((lib().cpu() - want).abs().max())
             bound = _combine_bound(*a, clock_hz, n_sms)
             emit({"phase": "kernels", "kernel": "sv_combine_logsum",
@@ -2869,17 +3070,22 @@ def phase_combine_kernel(sv_calls, pile_calls, clock_hz, n_sms):
                   "largest_cluster": int(a[1].max()), "W": W,
                   "D": a[5].shape[1], "bit_equal": True, "ms": ms,
                   "device_ms": device_ms, "plain_ms": plain_ms,
-                  "library_ms": library_ms,
-                  "library_max_abs_err": lib_err, **bound})
+                  "library_ms": library_ms, "turns": turns,
+                  "library_max_abs_err": lib_err,
+                  "wrapper_split_us": _combine_wrapper_split(a), **bound})
             del cid, rows
             if label == "sv run" and side == 0:
+                # the chain is of fp32 adds: an operations bound
                 rec = {"name": "sv_combine_logsum", "route": "cuda",
                        "source": "speedseq_tpu_torch/ops/csrc/sv_combine.cu",
                        "replaces": "speedseq_tpu/sv/device.py:120",
                        "launches": 0, "max_abs_err": max_err, "ms": ms,
                        "device_ms": device_ms, "plain_ms": plain_ms,
                        "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"],
+                       "bound_by": ("bytes" if bound["bound_by"] == "bytes"
+                                    else "operations"),
+                       "bound_by_detail": bound["bound_by"],
+                       "chain_ms": bound["chain_ms"],
                        "library_ms": library_ms,
                        "library": "index_add_ of the (n, W) log rows, "
                        "not order-equal", "shape": [C, W]}

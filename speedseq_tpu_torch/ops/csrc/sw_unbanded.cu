@@ -63,17 +63,24 @@
 // adding and n_ops keeps counting).  One warp an alignment, 8 columns a
 // thread.  A cell leaves a 4-bit code in shared memory (a thread's 8
 // columns are one 32-bit word a row, 128 bytes a row, 19,200 bytes at Lq
-// 150; nothing in device memory): the direction (0 stop, 1 diag, 2 I, 3 D;
-// ties diag > I > D; 0 where H <= 0), the vertical-extend bit, and a
-// record bit set where the cell's key exceeds every key left of it: the
-// deletion source of column j is the last record column before j, so the
-// walk finds it by one ballot over the row's words instead of a stored
-// distance.  Every thread of the warp runs the walk in step (its reads of
-// the code table are broadcasts); thread 0 keeps the cigar's lengths in
-// shared memory.  Its bound: int32 instructions, ops/sw_unbanded.py:
+// 150, so 11 blocks an SM; nothing in device memory): the direction (0
+// stop, 1 diag, 2 I, 3 D; ties diag > I > D; 0 where H <= 0), the
+// vertical-extend bit, and a record bit set where the cell's key exceeds
+// every key left of it: the deletion source of column j is the last
+// record column before j, so the walk finds it by one ballot over the
+// row's words instead of a stored distance.  The row (cigar_row) is built
+// for few instructions, since the forward pass holds the kernel (the walk
+// is a few per cent of its time, measured by cutting it out): the prefix
+// max runs on values, the direction and the record bit are sign
+// bits, the max-of-sum steps are DPX instructions, one reduction of
+// h * 256 + 255 - j gives the row max and its first column, and the cells
+// past the window need no mask.  The walk, every thread of the warp in
+// step, takes a plain diagonal run whole (32 cells (i - t, j - t) a
+// ballot) and keeps the cigar in registers: the op being written, and the
+// finished ops in their slots' threads (slots t and t + 32), shuffled out
+// reversed at the end.  Its bound: int32 instructions, ops/sw_unbanded.py:
 // OPS_PER_CELL_CIGAR a cell, or its bytes (queries, windows and the ten
-// outputs); the walk is Lq + Lr steps at most and, like the scan's rows,
-// a dependent chain.
+// outputs); the walk is Lq + Lr steps at most.
 
 #include <cuda_runtime.h>
 
@@ -337,6 +344,105 @@ constexpr int CIG_MAX_LR = 32 * CIG_C;
 constexpr int CIG_MAX_OPS = 64;
 constexpr int CIG_MAX_LQ = 1792;  // 128 bytes of codes a row, shared
 
+// where row i's word w (columns 8w .. 8w + 7) lies in the code table:
+// rotated by the row, so that the walk's 32 diagonal cells (i - t, j - t)
+// fall in 32 banks but at most a few pairs
+__device__ __forceinline__ int cslot(int i, int w) {
+  return i * 32 + ((w + i) & 31);
+}
+
+// A thread's per-column constants of the traceback DP (j = 8t + k): the
+// window code (4 where it is 4 or more: no query code below 4 equals
+// it), the mismatch score (-1 at such a code; OFF_WINDOW past the window)
+// and e j.
+constexpr int OFF_WINDOW = -(1 << 20);
+struct CigCols {
+  int rk[CIG_C], mis[CIG_C], ej[CIG_C];
+};
+
+// One row of the traceback DP for a thread's 8 columns: updates H and V,
+// returns the row's 32-bit word of 4-bit codes (column k in bits 4k ..
+// 4k + 3: the direction's two bits, the vertical-extend bit, the record
+// bit) and leaves in P the thread's max of h * 256 + 255 - j (the row max
+// and its first column).
+//   - the deletion state is the exclusive prefix max vmax of x = Ht + e j
+//     over the row (a max tree within the thread for the scan, a 5-step
+//     shuffle scan of the thread maxima, then a serial max), and h + e j
+//     = max(x, vmax - o);
+//   - the record bit: x >= vmax (the key (Ht + e j) * Lr + j of the twin
+//     beats every key left of it, ties going to the larger column), so a
+//     deletion's source is the last record column before it;
+//   - no compare decides the direction: with X = diag - h, Y = V - h and
+//     Z = -h (X, Y <= 0 <= h), bit 0 is the sign of Z & (Y | ~X) (diagonal
+//     or deletion) and bit 1 the sign of Z & X (a gap), so ties go diag >
+//     I > D and h <= 0 stops; the vertical-extend bit is the sign of
+//     Hprev - Vprev - o - 1; each enters its nibble by one funnel shift,
+//     and the nibbles join in a tree (a chain of 32 shifts is too long);
+//   - the cells past the window (j >= Lr) run on unmasked, their diagonal
+//     step scoring OFF_WINDOW: their values then come from real cells
+//     through gaps only, so with o, e >= 0 each stays at or below the row
+//     max of the real cells (a real cell of the row is at least the gap's
+//     source less its vertical gap), and a tie goes to the real column in
+//     P; no real cell reads them and the walk never reaches them;
+//   - the max-of-sum steps are Hopper's DPX instructions (__viaddmax_s32:
+//     max(a + b, c); its _relu form also takes 0).
+template <bool QOK>
+__device__ __forceinline__ unsigned cigar_row(int (&H)[CIG_C],
+                                              int (&V)[CIG_C], int qc, int t,
+                                              const CigCols& c, Scoring p,
+                                              int& P) {
+  int left = __shfl_up_sync(FULL, H[CIG_C - 1], 1);
+  if (t == 0) left = 0;
+  int Hd[CIG_C], sub[CIG_C], vx[CIG_C], vv[CIG_C], x[CIG_C];
+#pragma unroll
+  for (int k = 0; k < CIG_C; ++k) {
+    Hd[k] = k ? H[k - 1] : left;
+    sub[k] = QOK ? (qc == c.rk[k] ? p.match : c.mis[k])
+                 : (c.mis[k] == OFF_WINDOW ? OFF_WINDOW : -1);
+    vx[k] = H[k] - V[k] - (p.open + 1);
+    vv[k] = __viaddmax_s32(V[k], -p.ext, H[k] - (p.open + p.ext));
+    x[k] = __viaddmax_s32_relu(Hd[k], sub[k], vv[k]) + c.ej[k];
+    V[k] = vv[k];
+  }
+  // this thread's max of x, then the exclusive prefix max over threads
+  int incl = max(__vimax3_s32(x[0], x[1], x[2]),
+                 __vimax3_s32(__vimax3_s32(x[3], x[4], x[5]), x[6], x[7]));
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1)   // shfl_up gives a lane below d its own
+    incl = max(incl, __shfl_up_sync(FULL, incl, d));
+  int vmax = __shfl_up_sync(FULL, incl, 1);
+  if (t == 0) vmax = NEG;
+  const int cbase = 255 - CIG_C * t;
+  int rec[CIG_C], b0[CIG_C], b1[CIG_C];
+  P = -(1 << 30);
+#pragma unroll
+  for (int k = 0; k < CIG_C; ++k) {
+    const int h = __viaddmax_s32(vmax, -p.open, x[k]) - c.ej[k];
+    rec[k] = vmax - x[k] - 1;
+    vmax = max(vmax, x[k]);
+    const int X = Hd[k] + sub[k] - h, Y = vv[k] - h, Z = -h;
+    b0[k] = Z & (Y | ~X);
+    b1[k] = Z & X;
+    P = __viaddmax_s32(h * 256 + cbase, -k, P);
+    H[k] = h;
+  }
+  // each column's nibble from its four sign bits, then the nibbles
+  // joined in a tree (no carries: they do not overlap)
+  unsigned nib[CIG_C];
+#pragma unroll
+  for (int k = 0; k < CIG_C; ++k) {
+    nib[k] = (unsigned)rec[k] >> 31;
+    nib[k] = __funnelshift_l((unsigned)vx[k], nib[k], 1);
+    nib[k] = __funnelshift_l((unsigned)b1[k], nib[k], 1);
+    nib[k] = __funnelshift_l((unsigned)b0[k], nib[k], 1);
+  }
+#pragma unroll
+  for (int k = 0; k < CIG_C; k += 2) nib[k] += nib[k + 1] << 4;
+#pragma unroll
+  for (int k = 0; k < CIG_C; k += 4) nib[k] += nib[k + 2] << 8;
+  return nib[0] + (nib[4] << 16);
+}
+
 __global__ void __launch_bounds__(32)
     sw_unbanded_cigar_kernel(const int* __restrict__ query,
                              const int* __restrict__ qlen,
@@ -345,117 +451,133 @@ __global__ void __launch_bounds__(32)
                              int* __restrict__ out, long stride,
                              signed char* __restrict__ ops_out,
                              int* __restrict__ lens_out) {
-  // codes[i * 32 + t]: nibble k = column 8t + k of row i; a nibble is
+  // codes[cslot(i, t)]: nibble k = column 8t + k of row i; a nibble is
   // dir (2 bits) | vext << 2 | record << 3
   extern __shared__ unsigned codes[];
-  __shared__ int lens[CIG_MAX_OPS];
-  __shared__ signed char ops[CIG_MAX_OPS];
   const int lane = blockIdx.x;
   if (lane >= n) return;
   const int t = threadIdx.x;
   const int j0 = t * CIG_C;
   const int* q = query + (long)lane * Lq;
   const int* r = ref + (long)lane * Lr;
-  int rc[CIG_C], H[CIG_C], V[CIG_C];
+  CigCols c;
+  int H[CIG_C], V[CIG_C];
 #pragma unroll
   for (int k = 0; k < CIG_C; ++k) {
-    rc[k] = j0 + k < Lr ? r[j0 + k] : 4;
+    const int j = j0 + k;
+    const int rc = j < Lr ? r[j] : 4;
+    c.rk[k] = rc < 4 ? rc : 4;
+    c.mis[k] = j >= Lr ? OFF_WINDOW : rc < 4 ? -p.mis : -1;
+    c.ej[k] = p.ext * j;
     H[k] = 0;
     V[k] = NEG;
   }
-  for (int x = t; x < max_ops; x += 32) {
-    lens[x] = 0;
-    ops[x] = -1;
-  }
   const int ql = qlen[lane];
   const int rows = max(0, min(ql, Lq));
-  const int oe = p.open + p.ext;
   int bs = 0, bi = 0, bj = 0, gs = 0, gj = 0;
-  int qreg = 4;
+  // the query's codes, 32 rows a register, the next 32 loaded a block
+  // of rows ahead
+  int qreg = t < Lq ? q[t] : 4, qnext = 4;
   for (int i = 0; i < rows; ++i) {
-    if ((i & 31) == 0) qreg = i + t < Lq ? q[i + t] : 4;
+    if ((i & 31) == 0) {
+      if (i > 0) qreg = qnext;
+      qnext = i + 32 + t < Lq ? q[i + 32 + t] : 4;
+    }
     const int qc = __shfl_sync(FULL, qreg, i & 31);
-    const bool q_ok = qc < 4;
-    int left = __shfl_up_sync(FULL, H[CIG_C - 1], 1);
-    if (t == 0) left = 0;
-    int Ht[CIG_C], dg[CIG_C], vv[CIG_C];
-    unsigned vx = 0;
-    int run = -1;      // this thread's max key (Ht + e*j) * 256 + j
-#pragma unroll
-    for (int k = 0; k < CIG_C; ++k) {
-      const int j = j0 + k;
-      const int sub = (q_ok && rc[k] < 4) ? (qc == rc[k] ? p.match : -p.mis)
-                                          : -1;
-      dg[k] = sub + (k ? H[k - 1] : left);
-      const int ve = V[k] - p.ext, ho = H[k] - oe;
-      vv[k] = max(ve, ho);
-      vx |= (unsigned)(ve >= ho) << k;
-      V[k] = vv[k];
-      Ht[k] = j < Lr ? max(max(dg[k], vv[k]), 0) : 0;
-      run = max(run, (Ht[k] + p.ext * j) * 256 + j);
+    int P;
+    // a row whose query code is 4 or more scores -1 at every column
+    const unsigned word = qc < 4 ? cigar_row<true>(H, V, qc, t, c, p, P)
+                                 : cigar_row<false>(H, V, qc, t, c, p, P);
+    codes[cslot(i, t)] = word;
+    // the row max and its first column (threads hold ascending columns)
+    P = __reduce_max_sync(FULL, P);
+    const int rowmax = P >> 8, rj = 255 - (P & 255);
+    if (rowmax > bs) {
+      bs = rowmax;
+      bi = i;
+      bj = rj;
     }
-    int incl = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, d);
-      if (t >= d) incl = max(incl, y);
-    }
-    int pm = __shfl_up_sync(FULL, incl, 1);   // keys are >= 0; -1: none
-    if (t == 0) pm = -1;
-    unsigned word = 0;
-    int tb = -1, tj = 0;
-#pragma unroll
-    for (int k = 0; k < CIG_C; ++k) {
-      const int j = j0 + k;
-      const int key = (Ht[k] + p.ext * j) * 256 + j;
-      const int F = (pm >= 0 ? pm >> 8 : NEG) - p.open - p.ext * j;
-      const int h = j < Lr ? max(Ht[k], F) : 0;
-      const unsigned dir = (j >= Lr || h <= 0) ? 0u
-                           : h == dg[k]        ? 1u
-                           : h == vv[k]        ? 2u
-                           : h == F            ? 3u
-                                               : 0u;
-      word |= (dir | ((vx >> k) & 1u) << 2 | (unsigned)(key > pm) << 3)
-              << (4 * k);
-      pm = max(pm, key);
-      H[k] = h;
-      if (h > tb) {
-        tb = h;
-        tj = j;
-      }
-    }
-    codes[i * 32 + t] = word;
-    const int rowmax = __reduce_max_sync(FULL, tb);
-    const bool last = i == rows - 1;
-    if (rowmax > bs || last) {
-      const unsigned hold = __ballot_sync(FULL, tb == rowmax);
-      const int rj = __shfl_sync(FULL, tj, __ffs(hold) - 1);
-      if (rowmax > bs) {
-        bs = rowmax;
-        bi = i;
-        bj = rj;
-      }
-      if (last) {
-        gs = rowmax;
-        gj = rj;
-      }
+    if (i == rows - 1) {
+      gs = rowmax;
+      gj = rj;
     }
   }
   __syncwarp();
-  // the walk, every thread in step: tb_body of banded_sw
+  // the walk, every thread in step: tb_body of banded_sw.  A plain
+  // diagonal run is taken whole: thread t reads cell (i - t, j - t), a
+  // ballot finds the first that is no diagonal step (or lies out of
+  // range), and the run goes into the M op at once; that cell, an
+  // I step (mode 1 forces one) or a deletion jump is one step.  The
+  // op being written stays in registers (cur_op, cur_len) and each
+  // finished op goes to its slot's thread (slots t and t + 32).
   int i = bi, j = bj, mode = 0, kop = 0, last_op = -1;
+  int cur_op = -1, cur_len = 0;
+  int o0 = -1, o1 = -1, l0 = 0, l1 = 0;
+  const auto flush = [&]() {   // the current op into slot kop - 1 (clipped)
+    const int s = min(kop - 1, max_ops - 1);
+    if (t == (s & 31)) {
+      if (s < 32) {
+        o0 = cur_op;
+        l0 = cur_len;
+      } else {
+        o1 = cur_op;
+        l1 = cur_len;
+      }
+    }
+  };
+  const auto emit = [&](int op, int len) {   // M 0, I 1, D 2; len steps
+    if (kop > 0 && op == last_op) {
+      cur_len += len;
+      return;
+    }
+    // a new op takes slot min(kop, max_ops - 1): past max_ops - 1 the
+    // last slot's op is overwritten and its length keeps adding
+    if (kop >= max_ops) {
+      cur_len += len;
+    } else {
+      if (kop > 0) flush();
+      cur_len = len;
+    }
+    cur_op = op;
+    last_op = op;
+    ++kop;
+  };
   if (bs > 0) {
-    for (int step = 0; step < Lq + Lr; ++step) {
-      const bool oob = i < 0 || j < 0;
-      const int ii = min(max(i, 0), Lq - 1), jj = min(max(j, 0), Lr - 1);
-      const unsigned code = codes[ii * 32 + (jj >> 3)] >> (4 * (jj & 7));
-      const int d = mode == 1 ? 2 : oob ? 0 : (int)(code & 3u);
-      if (d == 0) break;
+    const int limit = Lq + Lr;   // banded_sw's steps
+    int step = 0;
+    while (step < limit) {
+      unsigned code;
+      int d;
+      if (mode == 0) {
+        if (i < 0 || j < 0) break;
+        const int ri = i - t, cj = j - t;
+        const unsigned cd =
+            ri >= 0 && cj >= 0
+                ? codes[cslot(ri, cj >> 3)] >> (4 * (cj & 7)) & 15u
+                : 0u;
+        const unsigned stop = __ballot_sync(FULL, (cd & 3u) != 1u);
+        const int run = stop ? __ffs(stop) - 1 : 32;
+        const int m = min(run, limit - step);
+        if (m > 0) {
+          emit(0, m);
+          i -= m;
+          j -= m;
+          step += m;
+        }
+        if (m < run || run == 32) continue;
+        code = __shfl_sync(FULL, cd, run);
+        d = (int)(code & 3u);           // 0 also out of range
+        if (d == 0) break;
+      } else {
+        const int ii = min(max(i, 0), Lq - 1), jj = min(max(j, 0), Lr - 1);
+        code = codes[cslot(ii, jj >> 3)] >> (4 * (jj & 7));
+        d = 2;
+      }
       int step_len = 1;
       if (d == 3) {
-        // the deletion source: the last record column of row ii before jj
-        unsigned recs = codes[ii * 32 + t] & 0x88888888u;
-        const int below = jj - 8 * t;     // this word's columns before jj
+        // the deletion source: the last record column of row i before j
+        unsigned recs = codes[cslot(i, t)] & 0x88888888u;
+        const int below = j - 8 * t;     // this word's columns before j
         if (below <= 0)
           recs = 0;
         else if (below < 8)
@@ -467,38 +589,34 @@ __global__ void __launch_bounds__(32)
           const unsigned rw = __shfl_sync(FULL, recs, w);
           gsrc = 8 * w + (31 - __clz(rw)) / 4;
         }
-        step_len = max(min(max(jj - gsrc, 0), 255), 1);
+        step_len = max(min(max(j - gsrc, 0), 255), 1);
       }
-      const int op = d - 1;            // M 0, I 1, D 2
-      if (kop > 0 && op == last_op) {
-        if (t == 0) lens[min(kop - 1, max_ops - 1)] += step_len;
-      } else {
-        const int w = min(kop, max_ops - 1);
-        if (t == 0) {
-          ops[w] = (signed char)op;
-          lens[w] += step_len;
-        }
-        ++kop;
-        last_op = op;
-      }
+      emit(d - 1, step_len);
       mode = (d == 2 && (code >> 2 & 1u)) ? 1 : 0;
-      if (d == 1) {
+      if (d == 2)
         --i;
-        --j;
-      } else if (d == 2) {
-        --i;
-      } else {
+      else
         j -= step_len;
-      }
+      ++step;
     }
   }
-  __syncwarp();
-  // the ops were written end to start: reverse the valid prefix
-  for (int x = t; x < max_ops; x += 32) {
+  if (kop > 0) flush();
+  // the ops were written end to start: reverse the valid prefix, each
+  // slot from its thread
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int x = t + 32 * h;
     const int src = kop - 1 - x;
-    const int s = min(src, max_ops - 1);
-    ops_out[(long)lane * max_ops + x] = src >= 0 ? ops[s] : (signed char)-1;
-    lens_out[(long)lane * max_ops + x] = src >= 0 ? lens[s] : 0;
+    const int s = max(min(src, max_ops - 1), 0);
+    const int a0 = __shfl_sync(FULL, o0, s & 31);
+    const int a1 = __shfl_sync(FULL, o1, s & 31);
+    const int b0 = __shfl_sync(FULL, l0, s & 31);
+    const int b1 = __shfl_sync(FULL, l1, s & 31);
+    if (x < max_ops) {
+      ops_out[(long)lane * max_ops + x] =
+          (signed char)(src >= 0 ? (s < 32 ? a0 : a1) : -1);
+      lens_out[(long)lane * max_ops + x] = src >= 0 ? (s < 32 ? b0 : b1) : 0;
+    }
   }
   if (t == 0) {
     out[lane] = bs;
@@ -578,7 +696,7 @@ int ssq_sw_unbanded_score_wide(const void* query, const void* qlen,
 // int32; out (8, out_stride) int32 = score, qbeg, qend, rbeg, rend, n_ops,
 // gscore, grend; ops (n, max_ops) int8 (-1 padding), lens (n, max_ops)
 // int32 (0 padding).  Needs 1 <= Lq <= 1792, 1 <= Lr <= 256, 1 <= max_ops
-// <= 64.
+// <= 64, and gap penalties open, ext >= 0.
 int ssq_sw_unbanded_cigar(const void* query, const void* qlen,
                           const void* ref, int n, int Lq, int Lr, int p_match,
                           int p_mis, int p_open, int p_ext, int max_ops,
@@ -586,7 +704,7 @@ int ssq_sw_unbanded_cigar(const void* query, const void* qlen,
                           void* stream) {
   if (n <= 0) return 0;
   if (Lq < 1 || Lq > CIG_MAX_LQ || Lr < 1 || Lr > CIG_MAX_LR ||
-      max_ops < 1 || max_ops > CIG_MAX_OPS)
+      max_ops < 1 || max_ops > CIG_MAX_OPS || p_open < 0 || p_ext < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)Lq * 32 * sizeof(unsigned);
   if (smem > 48 * 1024) {

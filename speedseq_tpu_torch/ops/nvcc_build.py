@@ -12,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+import threading
 import time
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -40,7 +41,7 @@ def build_library(source: str, info: dict, verbose_ptxas: bool = False) -> str:
     if os.path.exists(so) and not verbose_ptxas:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
+    tmp = f"{so}.tmp.{os.getpid()}.{threading.get_ident()}"
     cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose_ptxas else [])
     cmd += [source, "-o", tmp]
     t0 = time.perf_counter()

@@ -11,8 +11,11 @@ member's curve and ``log(1e-12)`` outside.  That is the float32
 the reference's sum on the CPU.
 
 A CUDA tensor launches the hand kernel of ``csrc/sv_combine.cu`` (a block a
-(cluster, column tile), one thread a column, the members in rank order; it
-raises if the launch fails), a CPU tensor runs
+(cluster, column tile): log warps fill a shared buffer with a chunk of
+members' log values while one thread a column adds the previous chunk's in
+rank order; first and sizes go to it as int32 or as the int64 that
+``torch.bincount`` gives, with no conversion; it raises if the launch
+fails), a CPU tensor runs
 ``sv_combine_logsum_plain``, a loop over member ranks vectorised across
 clusters, which is the kernel's executable specification (bit-equal on
 the card: the same adds in the same order).  Any other device raises.
@@ -31,7 +34,7 @@ import torch
 from .nvcc_build import CSRC_DIR, build_library
 
 EPS = 1e-12
-MAX_W = 65535 * 128        # the kernel's column tiles on the grid's y axis
+MAX_W = 65535 * 128        # the kernel's widest tiles on the grid's y axis
 
 # launches of the kernel since the last reset (plain-twin calls not counted)
 LAUNCHES = {"sv_combine_logsum": 0}
@@ -60,14 +63,16 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ssq_sv_combine_logsum.argtypes = [
-                vp, vp, vp, ci, vp, vp, vp, ci, ci, vp, vp]
-            lib.ssq_sv_combine_logsum.restype = ci
+            for fn in (lib.ssq_sv_combine_logsum,
+                       lib.ssq_sv_combine_logsum_i64):
+                fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, vp, vp]
+                fn.restype = ci
             _lib = lib
     return _lib
 
 
 def _check(first, sizes, lo, start, clen, curves, W):
+    """C, after the inputs' shapes, W and one device are checked."""
     C, n = lo.shape[0], start.shape[0]
     if not (first.shape == sizes.shape == lo.shape == (C,)):
         raise ValueError("first, sizes and lo must be (C,) tensors")
@@ -76,7 +81,9 @@ def _check(first, sizes, lo, start, clen, curves, W):
     if curves.shape[1] < 1 or not 1 <= W <= MAX_W:
         raise ValueError(f"need D >= 1 and 1 <= W <= {MAX_W}, got "
                          f"D={curves.shape[1]} W={W}")
-    if len({t.device for t in (first, sizes, lo, start, clen, curves)}) != 1:
+    dev = lo.device
+    if (first.device != dev or sizes.device != dev or start.device != dev
+            or clen.device != dev or curves.device != dev):
         raise ValueError("the inputs must share one device")
     return C
 
@@ -87,23 +94,39 @@ def combine_logsum(first, sizes, lo, start, clen, curves, W: int):
     of start, clen and curves."""
     C = _check(first, sizes, lo, start, clen, curves, W)
     dev = lo.device
-    if dev.type == "cpu":
-        return sv_combine_logsum_plain(first, sizes, lo, start, clen, curves,
-                                       W)
-    if dev.type != "cuda":
+    if not lo.is_cuda:
+        if dev.type == "cpu":
+            return sv_combine_logsum_plain(first, sizes, lo, start, clen,
+                                           curves, W)
         raise ValueError(f"unsupported device {dev}")
     acc = torch.empty((C, W), dtype=torch.float32, device=dev)
     if C == 0:
         return acc
-    lib = _load()
-    i32 = lambda t: t.to(torch.int32).contiguous()
-    f, s, l, st, cl = (i32(t) for t in (first, sizes, lo, start, clen))
-    cur = curves.to(torch.float32).contiguous()
-    with torch.cuda.device(dev):       # the runtime launches on its device
-        rc = lib.ssq_sv_combine_logsum(
-            f.data_ptr(), s.data_ptr(), l.data_ptr(), C, st.data_ptr(),
-            cl.data_ptr(), cur.data_ptr(), cur.shape[1], W, acc.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib or _load()
+    i32 = torch.int32
+    # inputs already of the kernel's types and contiguous go as they are:
+    # first and sizes int64 (as torch.bincount and cumsum give them) or
+    # int32, the rest int32 and float32
+    launch = lib.ssq_sv_combine_logsum
+    if (first.dtype is torch.int64 and sizes.dtype is torch.int64
+            and first.is_contiguous() and sizes.is_contiguous()):
+        launch = lib.ssq_sv_combine_logsum_i64
+    elif not (first.dtype is i32 and sizes.dtype is i32
+              and first.is_contiguous() and sizes.is_contiguous()):
+        first, sizes = (t.to(i32).contiguous() for t in (first, sizes))
+    lo, start, clen = (t if t.dtype is i32 and t.is_contiguous()
+                       else t.to(i32).contiguous() for t in (lo, start, clen))
+    if curves.dtype is not torch.float32 or not curves.is_contiguous():
+        curves = curves.to(torch.float32).contiguous()
+    args = (first.data_ptr(), sizes.data_ptr(), lo.data_ptr(), C,
+            start.data_ptr(), clen.data_ptr(), curves.data_ptr(),
+            curves.shape[1], W, acc.data_ptr())
+    idx = dev.index
+    if idx == torch._C._cuda_getDevice():
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(dev):   # the runtime launches on its device
+            rc = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sv_combine_logsum launch failed: cudaError {rc}")
     LAUNCHES["sv_combine_logsum"] += 1

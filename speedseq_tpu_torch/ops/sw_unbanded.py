@@ -65,12 +65,11 @@ INT32_MAX = 2 ** 31 - 1
 # = 8.
 OPS_PER_CELL = 8
 
-# the traceback DP's forward pass, int32 instructions a cell: the scan's 8
-# (the prefix max taken on the key (Ht + e j) * 256 + j, one multiply-add
-# where the scan adds e j), the vertical-extend compare 1, the direction 3
-# (three compares into a select chain), the record bit 1 and packing the
-# 4-bit code into the row's word 2 = 15.  The walk, at most Lq + Lr steps
-# a lane, is not counted.
+# the traceback DP's forward pass, int32 instructions a cell: the scan's
+# 8, the vertical-extend bit 1, the direction 3 (diag - H, V - H and a
+# logic op on their signs), the record bit 1 and packing the 4-bit code
+# into the row's word 2 = 15.  The walk, at most Lq + Lr steps a lane, is
+# not counted.
 OPS_PER_CELL_CIGAR = 15
 
 # launches of each kernel since the last reset (plain-twin calls not
@@ -257,8 +256,11 @@ def sw_score_unbanded_plain(query, qlen, ref, params=(1, 4, 6, 1)):
     return bs, bq, br, gs, gr
 
 
-def check_cigar_shape(Lq: int, Lr: int, max_ops: int, cuda: bool) -> None:
-    """Raises ValueError unless the traceback DP takes (Lq, Lr, max_ops)."""
+def check_cigar_shape(Lq: int, Lr: int, max_ops: int, cuda: bool,
+                      params=(1, 4, 6, 1)) -> None:
+    """Raises ValueError unless the traceback DP takes (Lq, Lr, max_ops)
+    and, on cuda, the scoring's gap penalties (open, ext >= 0: the kernel
+    lets the cells past the window run on unmasked, which needs them)."""
     if Lq < 1 or not 1 <= Lr <= CIGAR_MAX_LR:
         raise ValueError(f"the traceback DP needs Lq >= 1 and 1 <= Lr <= "
                          f"{CIGAR_MAX_LR} (deletion distances are uint8), "
@@ -267,6 +269,9 @@ def check_cigar_shape(Lq: int, Lr: int, max_ops: int, cuda: bool) -> None:
         raise ValueError(f"the kernel needs Lq <= {CIGAR_MAX_LQ} and "
                          f"1 <= max_ops <= {CIGAR_MAX_OPS}, got Lq={Lq} "
                          f"max_ops={max_ops}")
+    if cuda and min(params[2], params[3]) < 0:
+        raise ValueError(f"the kernel needs gap open and extension >= 0, "
+                         f"got {tuple(params)}")
 
 
 def sw_cigar_unbanded(query, qlen, ref, params=(1, 4, 6, 1), max_ops=48):
@@ -275,7 +280,7 @@ def sw_cigar_unbanded(query, qlen, ref, params=(1, 4, 6, 1), max_ops=48):
     padding) and cigar_len (N, max_ops) int32 (0 padding)."""
     N, Lq, Lr = _check_inputs(query, qlen, ref)
     dev = query.device
-    check_cigar_shape(Lq, Lr, max_ops, dev.type == "cuda")
+    check_cigar_shape(Lq, Lr, max_ops, dev.type == "cuda", params)
     if dev.type == "cpu":
         return sw_cigar_unbanded_plain(query, qlen, ref, params, max_ops)
     if dev.type != "cuda":

@@ -4,6 +4,8 @@ package), the card tests (cuda vs cpu) and chip_smoke.py.
 - ``random_evidence``: random LUMPY evidence over two contigs, all four
   SV types, two samples (the generator of tests/test_sv.py:337-358);
 - ``pile_evidence``: one cluster of n overlapping DEL rows;
+- ``combine_edge_cases``: inputs of the curve combination's member
+  log-sum at the edges of its kernel's chunks and tiles;
 - ``sweep_columns``: sorted cluster-sweep inputs (gid, s1, e1, lo2, hi2)
   for the named shapes the sweep must handle, including two synthetic
   shapes of 1,048,576 rows: 16 uniform groups (the worst case for one
@@ -70,6 +72,50 @@ def pile_evidence(rng: np.random.Generator, n: int) -> List[Breakpoint]:
             is_split=bool(rng.integers(0, 2)),
         ))
     return out
+
+
+# (cluster sizes, W, D) of combine_edge_cases; on a card of 132 SMs the
+# kernel takes column tiles of 8, 16, 32, 64 and 128 columns (chunks of
+# 496, 248, 124, 60 and 4 members), the pile tiles of 8; each case has
+# clusters at K - 1, K and K + 1 members, an empty one and one of 3 K + 1
+# (four chunks fill the kernel's three-stage pipeline)
+COMBINE_EDGES = {
+    "tile-8": ([495, 496, 497, 0, 1489, 1], 100, 90),
+    "tile-16": ([247, 248, 249, 0, 745], 300, 120),
+    "tile-32": ([123, 124, 125, 0, 373], 600, 64),
+    "tile-64": ([59, 60, 61, 0, 181], 900, 120),
+    "tile-128": ([3, 4, 5, 0, 13] + [1 + (7 * k) % 40 for k in range(65)],
+                 300, 64),
+    "pile-4096": ([4096], 256, 100),
+}
+
+
+def combine_edge_cases(name: str, seed: int = 0):
+    """(first, sizes, lo, start, clen, curves, W) of the member log-sum
+    (``ops/sv_combine.py:combine_logsum``), numpy int32 / float32, for
+    the COMBINE_EDGES case ``name``: members in row order, a cluster's
+    starts from a little before its lo to past W, lengths 0..D, curve
+    values uniform in [0.001, 1) but 24 cells inside their curves and W,
+    three each of NaN, 0, negative, inf, denormal, 1e-13, 1e-12 and
+    2e-12."""
+    sizes, W, D = COMBINE_EDGES[name]
+    rng = np.random.default_rng(seed)
+    sizes = np.asarray(sizes, np.int32)
+    C, n = len(sizes), int(sizes.sum())
+    first = (np.cumsum(sizes) - sizes).astype(np.int32)
+    lo = (1000 + 37 * np.arange(C)).astype(np.int32)
+    cid = np.repeat(np.arange(C), sizes)
+    start = (lo[cid] + rng.integers(-5, W, n)).astype(np.int32)
+    clen = rng.integers(0, D + 1, n).astype(np.int32)
+    curves = rng.uniform(0.001, 1.0, (n, D)).astype(np.float32)
+    odd = np.array([np.nan, 0.0, -0.5, np.inf, 1e-40, 1e-13, 1e-12, 2e-12],
+                   np.float32)
+    # the odd cells lie inside their member's curve and inside W
+    rows, cols = rng.integers(0, n, 24), rng.integers(0, min(D, W // 2), 24)
+    start[rows] = lo[cid[rows]] + rng.integers(0, W // 2, 24)
+    clen[rows] = np.maximum(clen[rows], cols + 1)
+    curves[rows, cols] = odd[np.arange(24) % len(odd)]
+    return first, sizes, lo, start, clen, curves, W
 
 
 SWEEP_SHAPES = ("random", "one-row", "one-group", "one-row-groups", "genome",

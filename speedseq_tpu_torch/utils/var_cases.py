@@ -13,6 +13,9 @@
   (an all-zero lane, deletions of 130..200 columns between two short
   halves, insertion runs of 8..20 bases, lanes of more than 48 ops when
   gaps are cheap) at Lq <= Lr <= 256;
+- ``cigar_run_lanes``: the traceback walk's long runs at any Lq and
+  Lr <= 256: exact placements (diagonal runs of more than 32 rows), a few
+  spaced mismatches, and long insertions (I-runs that mode 1 carries);
 - ``random_sites``: random per-site observations, qualities, samples,
   placements and strands with 1..max_alts live alleles per site.
 """
@@ -115,6 +118,50 @@ def cigar_lanes(Lq: int, Lr: int, seed: int):
         ql2[18 + k] = len(a)
     return (np.concatenate([q, q2]), np.concatenate([ql, ql2]),
             np.concatenate([r, r2]))
+
+
+def cigar_run_lanes(Lq: int, Lr: int, seed: int):
+    """(query, qlen, ref) int32 numpy arrays of 13 lanes for the traceback
+    DP at any Lq >= 1 and Lr <= 256: an exact copy of the window's first
+    min(Lq, Lr - 2) bases; the same behind Lq - that many random bases
+    (qlen Lq); exact copies with 1, 2 and 3 mismatches 40 bases apart;
+    an exact copy of the window reversed against it (no run); where the
+    window has room, exact placements with 6, 12, 24, 40, 60 and 90
+    random bases inserted at their middle (at a gap extension of 1 and
+    open 1 the insertion is one I-run, its steps past the first forced by
+    mode 1); and the window's last min(Lq - 1, Lr) // 2 bases then one
+    base that mismatches the window's last (the last row's maximum one
+    column short of the diagonal's exit past the window)."""
+    rng = np.random.default_rng(seed)
+    n = 13
+    q = rng.integers(0, 4, (n, Lq)).astype(np.int32)
+    r = rng.integers(0, 4, (n, Lr)).astype(np.int32)
+    ql = np.full(n, Lq, np.int32)
+    L = min(Lq, Lr - 2)
+    q[0, :L] = r[0, 1:1 + L]
+    ql[0] = L
+    q[1, Lq - L:] = r[1, 1:1 + L]
+    for k, mis in ((2, 1), (3, 2), (4, 3)):
+        q[k, :L] = r[k, 1:1 + L]
+        at = 20 + 40 * np.arange(mis)
+        at = at[at < L]
+        q[k, at] = (q[k, at] + 1) % 4
+        ql[k] = L
+    q[5, :L] = r[5, 1:1 + L][::-1]
+    ql[5] = L
+    for k, ins in zip(range(6, 12), (6, 12, 24, 40, 60, 90)):
+        h = min((Lr - 4) // 2, (Lq - ins) // 2)
+        if h < 8:
+            continue
+        a = np.concatenate([r[k, 2:2 + h], rng.integers(0, 4, ins),
+                            r[k, 2 + h:2 + 2 * h]])
+        q[k, :len(a)] = a
+        ql[k] = len(a)
+    h = min(Lq - 1, Lr) // 2
+    q[12, :h] = r[12, Lr - h:]
+    q[12, h] = (r[12, Lr - 1] + 1) % 4
+    ql[12] = h + 1
+    return q, ql, r
 
 
 def random_sites(seed: int, S: int, R: int, n_samples: int,

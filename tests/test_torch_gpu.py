@@ -326,6 +326,34 @@ def test_unbanded_cigar_kernel_matches_twin(Lq, Lr, params, n):
         assert int(want[7].max()) > 48 or params != CHEAP_GAP
 
 
+@pytest.mark.parametrize("Lq,Lr,params", [
+    (150, 254, BWA), (300, 200, CHEAP_GAP), (1792, 256, BWA),
+    (1792, 256, CHEAP_GAP)],
+    ids=["150x254", "300x200-cheap-gap", "1792x256", "1792x256-cheap-gap"])
+def test_unbanded_cigar_kernel_on_long_runs(Lq, Lr, params):
+    """ssq_sw_unbanded_cigar against its twin on the card, all ten
+    outputs bit-equal, on utils/var_cases.cigar_run_lanes: exact
+    placements whose diagonal runs are longer than 32 rows (up to 254 at
+    Lq 1,792), spaced mismatches, and insertions of 6..90 bases, whose
+    I-runs mode 1 carries."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import cigar_run_lanes
+
+    q, ql, r = (torch.from_numpy(a).cuda()
+                for a in cigar_run_lanes(Lq, Lr, seed=Lq))
+    before = sw_unbanded.LAUNCHES["sw_unbanded_cigar"]
+    got = sw_unbanded.sw_cigar_unbanded(q, ql, r, params)
+    torch.cuda.synchronize()
+    assert sw_unbanded.LAUNCHES["sw_unbanded_cigar"] == before + 1
+    want = sw_unbanded.sw_cigar_unbanded_plain(q, ql, r, params)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    ops, lens = want[5].cpu(), want[6].cpu()
+    assert int(torch.where(ops == 0, lens, 0).max()) > 32
+    assert int(torch.where(ops == 1, lens, 0).max()) >= 6
+
+
 def test_unbanded_cigar_kernel_refuses_what_it_cannot_take():
     """On a CUDA tensor the traceback DP raises for Lr > 256 (as on the
     CPU: the deletion distance is a uint8), for Lq > 1792 (the kernel's
@@ -381,6 +409,35 @@ def test_combine_kernel_matches_twin(kind, n, trim, monkeypatch):
             assert np.array_equal(getattr(gpu, f)[k], getattr(cpu, f)[k])
         np.testing.assert_allclose(gpu.prob[k], cpu.prob[k], atol=2e-5,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("case", sorted(sv_cases.COMBINE_EDGES))
+def test_combine_kernel_matches_twin_at_chunk_edges(case):
+    """ssq_sv_combine_logsum against its twin on the card, bit for bit (NaN
+    payloads too), one launch an entry: utils/sv_cases.combine_edge_cases,
+    whose
+    clusters sit at the chunk edges K - 1, K, K + 1 of the 32-, 64- and
+    128-column tiles the kernel picks on a 132-SM card, with an empty
+    cluster, W no multiple of the tile, NaN, 0, negative, inf, denormal
+    and <= 1e-12 curve cells, and a 4,096-member pile; first and sizes
+    int32 and int64 (the kernel's two entries)."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sv_combine
+
+    a = sv_cases.combine_edge_cases(case, seed=3)
+    t = [torch.from_numpy(x).cuda() for x in a[:6]]
+    before = sv_combine.LAUNCHES["sv_combine_logsum"]
+    got = sv_combine.combine_logsum(*t, a[6])
+    # first and sizes as int64, as cluster_and_combine passes them: the
+    # kernel's int64 entry
+    got64 = sv_combine.combine_logsum(t[0].long(), t[1].long(), *t[2:], a[6])
+    torch.cuda.synchronize()
+    assert sv_combine.LAUNCHES["sv_combine_logsum"] == before + 2
+    want = sv_combine.sv_combine_logsum_plain(*t, a[6])
+    for g in (got, got64):
+        assert torch.equal(g.view(torch.int32).cpu(),
+                           want.view(torch.int32).cpu())
+    assert bool(torch.isnan(want).any())
 
 
 @pytest.mark.parametrize("n_samples,pooled", [(1, False), (3, False),

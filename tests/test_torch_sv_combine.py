@@ -111,3 +111,104 @@ def test_wrapper_checks_its_inputs():
                                   16)
     with pytest.raises(ValueError, match="W <="):
         sv_combine.combine_logsum(first, sizes, lo, start, clen, curves, 0)
+
+
+# -------------------------------------------- the chunked kernel's model
+
+SMS = 132          # the H100's SMs: the kernel narrows its tile below half
+
+
+def _tile(C, W, sms=SMS):
+    """csrc/sv_combine.cu's column tile: the widest of 128, 64, 32 and 16
+    whose C x ceil(W / tile) blocks fill half the SMs, else 8."""
+    for tw in (128, 64, 32, 16):
+        if C * -(-W // tw) >= sms // 2:
+            return tw
+    return 8
+
+
+def _chunk(tw):
+    """Members a chunk of the kernel at a tile of tw columns: 4 a producer
+    thread, the producers the block (256 threads at 128 columns, else
+    1,024) less its adder warps."""
+    B = 256 if tw == 128 else 1024
+    return 4 * (B - max(tw, 32)) // tw
+
+
+def _combine_kernel_model(first, sizes, lo, start, clen, curves, W):
+    """csrc/sv_combine.cu:combine_logsum_kernel in numpy: a block a
+    (cluster, tile of TW columns), the members in chunks of K (_chunk); a
+    chunk's K x TW log values (torch.log, the function the twin and the
+    card's logf compute, on the max with 1e-12, NaN kept; log(1e-12)
+    outside a member's curve, the curve index clipped at D - 1) fill a
+    buffer, then one float32 add a member a column, in row order, from
+    0.0.  Returns (acc, TW)."""
+    C, D = len(lo), curves.shape[1]
+    tw = _tile(C, W)
+    K = _chunk(tw)
+    eps = np.float32(1e-12)
+    log_eps = torch.log(torch.tensor(eps)).numpy()
+    acc = np.zeros((C, W), np.float32)
+    for c in range(C):
+        m = int(sizes[c])
+        for y in range(-(-W // tw)):
+            w = y * tw + np.arange(tw)
+            a = np.zeros(tw, np.float32)
+            for ch in range(-(-m // K)):
+                rows = int(first[c]) + ch * K + np.arange(min(K, m - ch * K))
+                rel = w[None, :] - (start[rows] - int(lo[c]))[:, None]
+                inside = (rel >= 0) & (rel < clen[rows][:, None])
+                x = curves[rows[:, None], np.clip(rel, 0, D - 1)]
+                x = np.where(np.isnan(x), x, np.maximum(x, eps))
+                buf = np.where(inside, torch.log(torch.from_numpy(
+                    np.ascontiguousarray(x))).numpy(), log_eps)
+                for k in range(len(rows)):
+                    a = (a + buf[k]).astype(np.float32)
+            keep = w < W
+            acc[c, w[keep]] = a[keep]
+    return acc, tw
+
+
+@pytest.mark.parametrize("case", sorted(sv_cases.COMBINE_EDGES))
+def test_combine_kernel_model_matches_twin(case):
+    """The chunked kernel's numpy model against the twin, bit for bit
+    (NaN at the twin's NaN), at the chunk edges K - 1, K, K + 1 of each
+    tile width, an empty cluster, a 4,096-member pile, W no multiple of
+    the tile, and NaN, 0, negative, inf, denormal and <= 1e-12 curve
+    values."""
+    a = sv_cases.combine_edge_cases(case, seed=3)
+    first, sizes, lo, start, clen, curves, W = a
+    got, tw = _combine_kernel_model(*a)
+    assert tw == {"tile-8": 8, "tile-16": 16, "tile-32": 32, "tile-64": 64,
+                  "tile-128": 128, "pile-4096": 8}[case]
+    K = _chunk(tw)
+    assert {K - 1, K, K + 1, 0} <= set(sizes.tolist()) or case == "pile-4096"
+    assert W % tw or case == "pile-4096"
+    want = sv_combine.sv_combine_logsum_plain(
+        *(torch.from_numpy(x) for x in a[:6]), W).numpy()
+    # NaN where the twin has NaN (numpy and torch differ in NaN payloads
+    # on the CPU), every other sum the same bits
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan],
+                                  want.view(np.int32)[~nan])
+    assert nan.any() and (~nan).sum() > want.size // 2
+    assert (want == 0).any() == (0 in sizes)
+
+
+def test_combine_kernel_model_order_matters():
+    """The model is sharp: adding a chunk's members in reverse order (the
+    same values) breaks bit-equality on the pile."""
+    a = sv_cases.combine_edge_cases("pile-4096", seed=3)
+    a[5][np.isnan(a[5])] = 0.5          # NaN would hide any order
+    want = sv_combine.sv_combine_logsum_plain(
+        *(torch.from_numpy(x) for x in a[:6]), a[6]).numpy()
+    got, _ = _combine_kernel_model(*a)
+    np.testing.assert_array_equal(got, want)
+    first, sizes = a[0], a[1]
+    rev = list(a)
+    rows = np.arange(int(sizes[0]))
+    rows[:496] = rows[:496][::-1]
+    for i in (3, 4, 5):
+        rev[i] = a[i][rows]
+    assert not np.array_equal(_combine_kernel_model(*rev)[0], want)

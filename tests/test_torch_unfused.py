@@ -25,6 +25,7 @@
   tests/test_torch_sv.py.
 """
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
@@ -55,7 +56,7 @@ from speedseq_tpu_torch.index.kmer import read_kmers
 from speedseq_tpu_torch.ops import sw_unbanded
 from speedseq_tpu_torch.sv import cluster as tcluster
 from speedseq_tpu_torch.utils import sv_cases
-from speedseq_tpu_torch.utils.var_cases import cigar_lanes
+from speedseq_tpu_torch.utils.var_cases import cigar_lanes, cigar_run_lanes
 
 BWA, CHEAP_GAP, EXT_0 = (1, 4, 6, 1), (1, 4, 1, 1), (1, 4, 6, 0)
 FIELDS = ("score", "qbeg", "qend", "rbeg", "rend", "cigar_ops", "cigar_len",
@@ -118,29 +119,54 @@ def test_twin_matches_jax_banded_sw(jax_cigars, Lq, Lr, params):
         assert n_ops.max() > 48
 
 
-def _cigar_kernel_model(q, ql, r, params, max_ops=48):
-    """csrc/sw_unbanded.cu:sw_unbanded_cigar_kernel in numpy.  Forward
-    pass, all lanes at once: thread t holds columns [8 t, 8 t + 8); the
-    key (Ht + e j) * 256 + j, its exclusive prefix max from a 5-step
-    shuffle scan of the thread maxima and a serial max within the thread;
-    each row leaves one 32-bit word a thread of 4-bit codes (direction |
-    vext << 2 | record << 3, record = the key beats every key left of
-    it).  Then the walk, lane by lane, reading only those words: the
-    deletion source is the last record column before j (a ballot over the
-    words below j, the highest lane, its highest nibble)."""
+def _cslot(i, w):
+    """csrc/sw_unbanded.cu:cslot: row i's word w, rotated by the row."""
+    return i * 32 + ((w + i) & 31)
+
+
+MUTATIONS = ("run-in-mode-1", "unrotated-read", "first-record",
+             "run-past-stop", "clipped-slot-reset", "window-edge-scores-1")
+
+
+def _cigar_kernel_model(q, ql, r, params, max_ops=48, mutate=None,
+                        census=None):
+    """csrc/sw_unbanded.cu:sw_unbanded_cigar_kernel in numpy. Forward pass
+    (cigar_row), all lanes at once: thread t holds columns [8 t, 8 t + 8),
+    cells past the window run on unmasked, their diagonal step scoring
+    OFF_WINDOW; the exclusive prefix max vmax of x = Ht + e j from a 5-step
+    shuffle scan of the thread maxima and a serial max within the thread, F
+    = vmax - o - e j; each row leaves one 32-bit word a thread of 4-bit
+    codes, stored at ``_cslot(i, t)``: the direction from the sign bits of
+    Z & (Y | ~X) and Z & X (X = diag - h, Y = V - h, Z = -h), the
+    vertical-extend bit the sign of Hprev - Vprev - o - 1, the record bit x
+    >= vmax; the row max and its first column from one max of h * 256 + 255
+    - j. Then the walk, lane by lane, reading only that table: in mode 0 a
+    diagonal run of the cells (i - t, j - t), t < 32, up to the first that
+    is no diagonal step (a ballot), taken whole into the M op; then that
+    cell, or in mode 1 the forced I step, as one step; a deletion's source
+    is the last record column before j (a ballot over the row's words, the
+    highest lane, its highest nibble). The op being written is kept apart
+    and each finished op stored in its slot (clipped at max_ops - 1).
+    ``mutate`` (one of MUTATIONS) breaks one rule; ``census`` counts the
+    walk's branches."""
     m, x, o, e = params
     N, Lq = q.shape
     Lr = r.shape[1]
     NEG, C = sw_unbanded.NEG, 8
+    msb = lambda v: (v < 0).astype(np.int64)        # a sign bit
     j = np.arange(32 * C).reshape(32, C)
-    real = j < Lr
     rc = np.full((N, 32 * C), 4, np.int64)
     rc[:, :Lr] = r
     rc = rc.reshape(N, 32, C)
+    rk = np.where(rc < 4, rc, 4)                    # CigCols
+    off = -(1 << 20)                                # OFF_WINDOW
+    if mutate == "window-edge-scores-1":
+        off = -1
+    mis = np.where(j < Lr, np.where(rc < 4, -x, -1), off)
     H = np.zeros((N, 32, C), np.int64)
     V = np.full((N, 32, C), NEG, np.int64)
     rows = np.clip(ql, 0, Lq)
-    words = np.zeros((N, Lq, 32), np.int64)
+    table = np.zeros((N, Lq * 32), np.int64)
     bs, bi, bj, gs, gj = (np.zeros(N, np.int64) for _ in range(5))
     t = np.arange(32)
     for i in range(Lq):
@@ -148,35 +174,32 @@ def _cigar_kernel_model(q, ql, r, params, max_ops=48):
         qc = q[:, i].astype(np.int64)[:, None, None]
         left = np.concatenate([np.zeros((N, 1), np.int64), H[:, :-1, C - 1]],
                               axis=1)                            # shfl_up
-        dg = np.where((qc < 4) & (rc < 4), np.where(qc == rc, m, -x), -1) + \
-            np.concatenate([left[:, :, None], H[:, :, :-1]], axis=2)
-        ve, ho = V - e, H - o - e
-        vv = np.maximum(ve, ho)
-        ht = np.where(real, np.maximum(np.maximum(dg, vv), 0), 0)
-        key = (ht + e * j) * 256 + j
-        incl = key.max(axis=2)
+        hd = np.concatenate([left[:, :, None], H[:, :, :-1]], axis=2)
+        sub = np.where(qc < 4, np.where(qc == rk, m, mis),
+                       np.where(mis == off, off, -1))
+        vx = H - V - (o + 1)
+        vv = np.maximum(V - e, H - o - e)
+        ht = np.maximum(np.maximum(hd + sub, vv), 0)
+        xv = ht + e * j
+        incl = xv.max(axis=2)
         for d in (1, 2, 4, 8, 16):
             y = np.concatenate([incl[:, :d], incl[:, :-d]], axis=1)
-            incl = np.where(t >= d, np.maximum(incl, y), incl)
-        pm = np.concatenate([np.full((N, 1), -1, np.int64), incl[:, :-1]],
-                            axis=1)
-        pmx = np.maximum(pm[:, :, None], np.concatenate(
-            [np.full((N, 32, 1), -1, np.int64),
-             np.maximum.accumulate(key, axis=2)[:, :, :-1]], axis=2))
-        F = np.where(pmx >= 0, pmx >> 8, NEG) - o - e * j
-        h = np.where(real, np.maximum(ht, F), 0)
-        pos = real & (h > 0)
-        dr = np.where(pos & (h == dg), 1, np.where(
-            pos & (h == vv), 2, np.where(pos & (h == F), 3, 0)))
-        nib = dr | (ve >= ho).astype(np.int64) << 2 | \
-            (key > pmx).astype(np.int64) << 3
-        words[:, i] = np.where(act[:, None],
-                               (nib << (4 * np.arange(C))).sum(axis=2), 0)
-        tb = h.max(axis=2)
-        tj = np.take_along_axis(np.broadcast_to(j, h.shape),
-                                h.argmax(axis=2)[:, :, None], 2)[:, :, 0]
-        rowmax = tb.max(axis=1)
-        rj = tj[np.arange(N), (tb == rowmax[:, None]).argmax(axis=1)]
+            incl = np.maximum(incl, y)
+        vmax = np.concatenate([np.full((N, 1), NEG, np.int64),
+                               incl[:, :-1]], axis=1)
+        vm = np.maximum(vmax[:, :, None], np.concatenate(
+            [np.full((N, 32, 1), NEG, np.int64),
+             np.maximum.accumulate(xv, axis=2)[:, :, :-1]], axis=2))
+        h = np.maximum(vm - o - e * j, ht)
+        X, Y, Z = hd + sub - h, vv - h, -h
+        nib = msb(Z & (Y | ~X)) | msb(Z & X) << 1 | msb(vx) << 2 | \
+            msb(vm - xv - 1) << 3
+        table[:, _cslot(i, t)] = np.where(
+            act[:, None], (nib << (4 * np.arange(C))).sum(axis=2), 0)
+        # no mask past the window: those cells stay at or below the real
+        # row max (and lose its ties)
+        P = (h * 256 + 255 - j).max(axis=(1, 2))       # __reduce_max_sync
+        rowmax, rj = P >> 8, 255 - (P & 255)
         better = act & (rowmax > bs)
         bs, bi, bj = (np.where(better, a, b)
                       for a, b in ((rowmax, bs), (i, bi), (rj, bj)))
@@ -185,46 +208,96 @@ def _cigar_kernel_model(q, ql, r, params, max_ops=48):
         H = np.where(act[:, None, None], h, H)
         V = np.where(act[:, None, None], vv, V)
 
+    def cell(n, i, jv, rotated=True):
+        slot = _cslot(i, jv >> 3) if rotated else i * 32 + (jv >> 3)
+        return int(table[n, slot]) >> (4 * (jv & 7)) & 15
+
     qbeg, rbeg, n_ops = (np.zeros(N, np.int64) for _ in range(3))
     ops_o = np.full((N, max_ops), -1, np.int64)
     lens_o = np.zeros((N, max_ops), np.int64)
     for n in range(N):
         i, jv, mode, kop, last_op = int(bi[n]), int(bj[n]), 0, 0, -1
-        ops = np.full(max_ops, -1, np.int64)
-        lens = np.zeros(max_ops, np.int64)
-        for _ in range(Lq + Lr if bs[n] > 0 else 0):
-            ii, jj = min(max(i, 0), Lq - 1), min(max(jv, 0), Lr - 1)
-            code = int(words[n, ii, jj >> 3]) >> (4 * (jj & 7))
-            d = 2 if mode == 1 else 0 if (i < 0 or jv < 0) else code & 3
-            if d == 0:
-                break
-            step = 1
+        slots = {}                       # finished ops: slot -> (op, len)
+        cur = [-1, 0]                    # the op being written
+
+        def emit(op, ln):
+            nonlocal kop, last_op
+            if kop > 0 and op == last_op:
+                cur[1] += ln
+                return
+            if kop >= max_ops and mutate != "clipped-slot-reset":
+                cur[1] += ln
+            elif kop >= max_ops:
+                cur[1] = ln
+            else:
+                if kop > 0:
+                    slots[kop - 1] = tuple(cur)
+                cur[1] = ln
+            cur[0] = last_op = op
+            kop += 1
+
+        limit, step = Lq + Lr, 0
+        while bs[n] > 0 and step < limit:
+            if mode == 0 or mutate == "run-in-mode-1":
+                if mode == 0 and (i < 0 or jv < 0):
+                    break
+                cd = [cell(n, i - u, jv - u, mutate != "unrotated-read")
+                      if i - u >= 0 and jv - u >= 0 else 0
+                      for u in range(32)]
+                stop = [u for u in range(32) if cd[u] & 3 != 1]  # ballot
+                run = stop[0] if stop else 32
+                if mutate == "run-past-stop" and 0 < run < 31:
+                    run += 1
+                mm = min(run, limit - step)
+                if census is not None:
+                    census["run longer than 32"] += run == 32 and \
+                        cd[31] & 3 == 1 and i - 32 >= 0 and jv - 32 >= 0 \
+                        and cell(n, i - 32, jv - 32) & 3 == 1
+                    census["run stopped by a deletion"] += \
+                        run < 32 and cd[run] & 3 == 3
+                if mm > 0:
+                    emit(0, mm)
+                    i, jv, step = i - mm, jv - mm, step + mm
+                if mm < run or run == 32:
+                    continue
+                code, d = cd[run], cd[run] & 3
+                if d == 0:
+                    break
+            else:
+                code = cell(n, min(max(i, 0), Lq - 1),
+                            min(max(jv, 0), Lr - 1))
+                d = 2
+                if census is not None:
+                    census["I step in mode 1"] += 1
+            ln = 1
             if d == 3:
-                below = jj - 8 * t
+                below = jv - 8 * t
                 keep = np.where(below <= 0, 0, np.where(
                     below < 8, (1 << (4 * np.clip(below, 0, 7))) - 1,
                     0xFFFFFFFF))
-                recs = words[n, ii] & 0x88888888 & keep
+                words = table[n, _cslot(i, t)]
+                recs = words & 0x88888888 & keep
                 hold = np.flatnonzero(recs)                      # ballot
                 gsrc = 0
                 if len(hold):
-                    w = hold.max()
-                    gsrc = 8 * w + (int(recs[w]).bit_length() - 1) // 4
-                step = max(min(max(jj - gsrc, 0), 255), 1)
-            op = d - 1
-            if kop > 0 and op == last_op:
-                lens[min(kop - 1, max_ops - 1)] += step
-            else:
-                ops[min(kop, max_ops - 1)] = op
-                lens[min(kop, max_ops - 1)] += step
-                kop, last_op = kop + 1, op
+                    w = hold.min() if mutate == "first-record" else hold.max()
+                    bit = (int(recs[w]) & -int(recs[w])).bit_length() \
+                        if mutate == "first-record" else \
+                        int(recs[w]).bit_length()
+                    gsrc = 8 * w + (bit - 1) // 4
+                ln = max(min(max(jv - gsrc, 0), 255), 1)
+            emit(d - 1, ln)
             mode = 1 if d == 2 and (code >> 2) & 1 else 0
-            i -= d in (1, 2)
-            jv -= 1 if d == 1 else step if d == 3 else 0
+            if d == 2:
+                i -= 1
+            else:
+                jv -= ln
+            step += 1
+        if kop > 0:
+            slots[min(kop - 1, max_ops - 1)] = tuple(cur)
         src = kop - 1 - np.arange(max_ops)
-        s = np.minimum(src, max_ops - 1)
-        ops_o[n] = np.where(src >= 0, ops[s], -1)
-        lens_o[n] = np.where(src >= 0, lens[s], 0)
+        for xo in np.flatnonzero(src >= 0):
+            ops_o[n, xo], lens_o[n, xo] = slots[min(src[xo], max_ops - 1)]
         qbeg[n], rbeg[n], n_ops[n] = i + 1, jv + 1, kop
     return [bs, qbeg, bi + 1, rbeg, bj + 1, ops_o, lens_o, n_ops, gs,
             gj + 1]
@@ -232,11 +305,15 @@ def _cigar_kernel_model(q, ql, r, params, max_ops=48):
 
 @pytest.mark.parametrize("params", [BWA, CHEAP_GAP, EXT_0],
                          ids=["bwa", "cheap-gap", "ext-0"])
-@pytest.mark.parametrize("Lq,Lr", SHAPES + [(7, 9), (1, 1), (40, 31)],
+@pytest.mark.parametrize("Lq,Lr", SHAPES + [(7, 9), (1, 1), (40, 31),
+                                    (300, 200), (1792, 256)],
                          ids=["100x204", "150x254", "7x9", "1x1",
-                              "query-longer-40x31"])
+                              "query-longer-40x31", "runs-300x200",
+                              "runs-1792x256"])
 def test_cigar_kernel_model_matches_twin(Lq, Lr, params):
-    if Lr >= 150:
+    if Lq > Lr >= 150:  # runs longer than 32 rows, long I-runs
+        q, ql, r = cigar_run_lanes(Lq, Lr, seed=Lq)
+    elif Lr >= 150:
         q, ql, r = cigar_lanes(Lq, Lr, seed=Lq)
     else:               # two-letter lanes and codes -1..5, qlen -1..Lq + 1
         rng = np.random.default_rng(Lq + Lr)
@@ -248,6 +325,38 @@ def test_cigar_kernel_model_matches_twin(Lq, Lr, params):
     want = _twin(q, ql, r, params)
     _assert_equal(_cigar_kernel_model(q, ql, r, params), want,
                   f"model {Lq}x{Lr} {params}")
+
+
+@pytest.mark.parametrize("mutate", MUTATIONS)
+def test_cigar_kernel_model_mutations_fail(mutate):
+    """The model is sharp: each broken rule (a diagonal run taken in mode
+    1, the table read without its rotation, a deletion's source at the
+    first record, a run one cell past its stop, the clipped slot's length
+    restarted, the cells past the window scoring -1 on the diagonal, so
+    that the unmasked row max may land there) disagrees with the twin on
+    cigar_lanes or cigar_run_lanes."""
+    differ = []
+    for f in (cigar_lanes, cigar_run_lanes):
+        q, ql, r = f(150, 254, seed=150)
+        want = _twin(q, ql, r, CHEAP_GAP)
+        got = _cigar_kernel_model(q, ql, r, CHEAP_GAP, mutate=mutate)
+        differ.append(not all(np.array_equal(a, b)
+                              for a, b in zip(got, want)))
+    assert any(differ)
+
+
+def test_cigar_kernel_model_census():
+    """The walk's branches that the lanes reach: diagonal runs longer than
+    32 rows, runs stopped by a deletion, I steps forced by mode 1, more
+    than 48 ops (the clipped slot)."""
+    census = collections.Counter()
+    for f, Lq, Lr in ((cigar_lanes, 150, 254), (cigar_run_lanes, 300, 200)):
+        q, ql, r = f(Lq, Lr, seed=Lq)
+        got = _cigar_kernel_model(q, ql, r, CHEAP_GAP, census=census)
+        census["more than 48 ops"] += int((got[7] > 48).sum())
+    assert all(census[k] > 0 for k in (
+        "run longer than 32", "run stopped by a deletion",
+        "I step in mode 1", "more than 48 ops")), dict(census)
 
 
 def test_cigar_wrapper_runs_the_twin_on_cpu_and_checks_its_inputs():
@@ -262,6 +371,10 @@ def test_cigar_wrapper_runs_the_twin_on_cpu_and_checks_its_inputs():
         sw_unbanded.sw_cigar_unbanded(z(2, 10), z(2), z(2, 257))
     with pytest.raises(ValueError, match="Lq >= 1"):
         sw_unbanded.sw_cigar_unbanded(z(2, 0), z(2), z(2, 200))
+    # negative gap penalties: the twin takes them, the kernel does not
+    sw_unbanded.check_cigar_shape(150, 254, 48, False, (1, 4, -1, 1))
+    with pytest.raises(ValueError, match="gap open and extension"):
+        sw_unbanded.check_cigar_shape(150, 254, 48, True, (1, 4, 6, -1))
     with pytest.raises(ValueError, match="unsupported device"):
         sw_unbanded.sw_cigar_unbanded(q.to("meta"), ql.to("meta"),
                                       r.to("meta"))
