@@ -7,7 +7,8 @@ The second form runs only the device and build phases and against: the
 fm_search.cu, sv_cluster.cu, sw_banded.cu, sw_unbanded.cu and
 sv_combine.cu of earlier versions (each DIR holds any of them,
 fm_search.cu and sv_cluster.cu with a389f54's C interface or this
-checkout's, sw_banded.cu with c292ab1's or this checkout's, the other two
+checkout's, sw_banded.cu with c292ab1's or this checkout's, sw_unbanded.cu
+with 61d0390's (its wide scan on tiles) or this checkout's, sv_combine.cu
 with this checkout's; e.g. `git show c292ab1:speedseq_tpu_torch/ops/csrc/
 sw_banded.cu > build/c292ab1/sw_banded.cu`) built beside this
 checkout's, every kernel's output equal to its twin's (but those of the
@@ -21,9 +22,12 @@ x 256, at 768 x 150 x 256, 768 x 150 x 254 and 32,768 x 151 x 256,
 sw_cigar at the main path's 16,384, 1,024 and 256 x 151 x 256, the same
 lane counts x 150 x 256 and on the inputs one batch of the align cell
 gives it; sw_unbanded_score on hap_scan_lanes, on 280 lanes of var's 150
-x 192 and on 250 x 320 (the narrow kernel, with each kernel's SASS hash
-by library) and sw_unbanded_cigar on the unfused phase's launch (32,768
-x 150 x 254, captured from align_candidates) and on cigar_lanes (with
+x 192 and on 250 x 320 (the narrow entry, with each kernel's SASS hash
+by library and the ptxas lines), sw_unbanded_score_wide on 1,000 and
+2,000 bp reads (1000 x 1088, 2000 x 2112; this checkout's kernel also at
+one warp and at 4 warps an alignment) and sw_unbanded_cigar on the
+unfused phase's launch (32,768 x 150 x 254, captured from
+align_candidates) and on cigar_lanes (with
 its SASS loops); sv_combine_logsum on both sides of the SV_PILE pile and
 of 2,000 rows of random evidence (and, where a DIR also holds an
 sv_combine.py, that wrapper against this one); with the SASS loops of
@@ -141,7 +145,7 @@ Phases, each printing one JSON line:
            against cpu (the twin's member-rank loop, one step per member)
   kernels  sw_unbanded_score against its twin (bit-equal) on the var
            run's largest scan call, on hap_scan_lanes, on 250 bp reads
-           (250 x 320) and, through the wide kernel, on 1,000 and 2,000 bp
+           (250 x 320) and, through the wide entry, on 1,000 and 2,000 bp
            reads (1000 x 1088, 2000 x 2112); sv_combine_logsum against
            its twin (bit-equal) on
            both sides of the sv run's cluster pass and of the pile, with
@@ -618,7 +622,8 @@ def _earlier_libs(dirs):
     function by function: this checkout's (its argument types are copied)
     or an earlier one (a389f54's walk on occ, BWT and mark arrays and
     sweep on gid segment starts; c292ab1's cigar kernel with its direction
-    scratch ``dirs`` after max_ops)."""
+    scratch ``dirs`` after max_ops; 61d0390's wide scan on tiles, C
+    columns a thread and ntiles in the places of R and warps)."""
     import ctypes
     from concurrent.futures import ThreadPoolExecutor
 
@@ -633,11 +638,14 @@ def _earlier_libs(dirs):
                                   vp, ci, vp, vp],
                "ssq_sv_cluster": [vp, ci, ci, vp, vp, vp, vp, vp, vp, vp],
                "ssq_sw_cigar": [vp] * 3 + [ci] * 8 + [vp, vp, cl, vp, vp,
-                                                      vp]}
+                                                      vp],
+               "ssq_sw_unbanded_score_wide": [vp] * 3 + [ci] * 9 + [
+                   vp, cl, vp, vp]}
     MODS = {"fm_search": (fm_search, ("ssq_fm_smem", "ssq_fm_sa_walk")),
             "sv_cluster": (sv_cluster, ("ssq_sv_cluster",)),
             "sw_banded": (sw_banded, ("ssq_sw_cigar", "ssq_sw_score")),
             "sw_unbanded": (sw_unbanded, ("ssq_sw_unbanded_score",
+                                          "ssq_sw_unbanded_score_wide",
                                           "ssq_sw_unbanded_cigar")),
             "sv_combine": (sv_combine, ("ssq_sv_combine_logsum",))}
     todo = []
@@ -1120,7 +1128,8 @@ def _against_unbanded(work, fasta, genome, args, earlier, clock_hz, n_sms,
                       unchecked=()):
     """The unbanded scan of each library in turns on hap_scan_lanes
     (150 x 192), on 280 lanes of var's shape (about one var call) and on
-    250 bp reads (250 x 320); the traceback DP (ssq_sw_unbanded_cigar) in
+    250 bp reads (250 x 320), its wide entry on 1,000 and 2,000 bp reads
+    (``_against_unbanded_wide``); the traceback DP (ssq_sw_unbanded_cigar) in
     turns on the unfused phase's launch (32,768 x 150 x 254, captured
     from align_candidates) and on cigar_lanes (150 x 254, cheap gaps);
     with the device time, and the SASS hash of each library's kernels
@@ -1140,7 +1149,8 @@ def _against_unbanded(work, fasta, genome, args, earlier, clock_hz, n_sms,
     # each kernel's SASS hash by its name and template width, per library
     # (equal hashes: identical code)
     short = lambda fn: "".join(g or "" for g in re.search(
-        r"\d(sw_unbanded_(?:wide_|cigar_)?kernel)(ILi\d+E)?", fn).groups())
+        r"\d(sw_unbanded_(?:wide_|cigar_|scan_)?kernel)(ILi\d+E)?",
+        fn).groups())
     sass = {name: _sass_loops(lib._name, "sw_unbanded")
             for name, lib, _, _ in libs}
     emit({"phase": "against", "kernel": "sw_unbanded_score", "sass_sha1": {
@@ -1176,6 +1186,10 @@ def _against_unbanded(work, fasta, genome, args, earlier, clock_hz, n_sms,
                   [(name, lambda l=lib: run(l)) for name, lib, _, _ in libs],
                   want, queued=[name for name, _, _, _ in libs],
                   unchecked=unchecked)
+    for label, Lq, Lr in (("1,000 bp reads, wide", 1000, 1088),
+                          ("2,000 bp reads, wide", 2000, 2112)):
+        _against_unbanded_wide(label, unbanded_lanes(Lq, Lr, seed=args.seed),
+                               libs, unchecked)
     unfused = _capture_unfused_launch(fasta, genome, args)
     for label, host, params in (
             ("unfused launch", unfused, (1, 4, 6, 1)),
@@ -1209,6 +1223,62 @@ def _against_unbanded(work, fasta, genome, args, earlier, clock_hz, n_sms,
                   for name, run in runs}})
         del want, w
         torch.cuda.empty_cache()
+
+
+def _against_unbanded_wide(label, host, libs, unchecked=()):
+    """The wide entry (ssq_sw_unbanded_score_wide) of each library in
+    turns on one case (phase_against): 61d0390's interface with its
+    layout (tiles of C = 20, 24 or 32 columns a thread, the row in shared
+    memory up to 232,448 bytes), this checkout's with scan_layout's, and
+    this checkout's kernel also at one warp an alignment (its stripes in
+    turn through one buffer) and at up to 4 warps."""
+    import torch
+
+    from speedseq_tpu_torch.ops import sw_unbanded
+
+    q, ql, r = (torch.from_numpy(a).cuda() for a in host)
+    n, Lq, Lr = q.shape[0], q.shape[1], r.shape[1]
+    want = list(sw_unbanded.sw_score_unbanded_plain(q, ql, r))
+    out = torch.empty((5, n), dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(lib, a, b, scratch):
+        rc = lib.ssq_sw_unbanded_score_wide(
+            q.data_ptr(), ql.data_ptr(), r.data_ptr(), n, Lq, Lr, a, b, 1, 4,
+            6, 1, out.data_ptr(), n,
+            None if scratch is None else scratch.data_ptr(), stream)
+        check(rc == 0, f"sw_unbanded_score_wide launch failed ({rc})")
+        return list(out)
+
+    def scratch_of(nbytes):     # n lanes of nbytes
+        return torch.empty(n * nbytes, dtype=torch.uint8, device="cuda")
+
+    runs, layouts = [], {}
+    for name, lib, this, _ in libs:
+        if this:
+            mine = [(name, sw_unbanded.scan_layout(Lq))]
+            if name == "this":
+                mine += [("this, 1 warp", (8, 1)), ("this, 4 warps",
+                         sw_unbanded.scan_layout(Lq, warps=4))]
+            for label_, (R, W) in mine:
+                fixed, buf = sw_unbanded.scan_smem_bytes(Lq, Lr, R, W)
+                layouts[label_] = {"R": R, "warps": W}
+                runs.append((label_, lambda l=lib, a=R, b=W, s=(
+                    None if fixed + buf <= sw_unbanded.SMEM_MAX else
+                    scratch_of(buf)): run(l, a, b, s)))
+        else:
+            ntiles = -(-Lr // 1024)
+            C = next(c for c in (20, 24, 32) if 32 * c * ntiles >= Lr)
+            ntiles = -(-Lr // (32 * C))
+            layouts[name] = {"C": C, "ntiles": ntiles}
+            row = ntiles * 32 * C * 12
+            runs.append((name, lambda l=lib, a=C, b=ntiles, s=(
+                None if row <= sw_unbanded.SMEM_MAX else scratch_of(row)):
+                run(l, a, b, s)))
+    emit({"phase": "against", "kernel": "sw_unbanded_score_wide",
+          "case": f"{label}, {n} x {Lq} x {Lr}", "layouts": layouts})
+    _in_turns("sw_unbanded_score_wide", f"{label}, {n} x {Lq} x {Lr}", runs,
+              want, queued=[name for name, _ in runs], unchecked=unchecked)
 
 
 def _unfused_reads(genome, args):

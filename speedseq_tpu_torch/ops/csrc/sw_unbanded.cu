@@ -1,6 +1,6 @@
 // Unbanded local affine-gap Smith-Waterman for Hopper (sm_90a), behind a
-// plain C interface for ctypes: the score-only scan in two widths and the
-// DP with traceback.
+// plain C interface for ctypes: the score-only scan and the DP with
+// traceback.
 //
 // ssq_sw_unbanded_score / ssq_sw_unbanded_score_wide replace the XLA
 // lax.scan of speedseq_tpu/align/sw.py:banded_sw_score (var's and
@@ -17,39 +17,73 @@
 //     whole row (no 64-column cap: that is the Pallas kernels');
 //   - the best cell moves only on a strictly larger row max, and takes the
 //     row's first maximal column; gscore/grend are row qlen - 1's; rows at
-//     or past qlen change nothing, so the loop stops there.
+//     or past qlen change nothing.
 //
-// Design of the narrow scan (Lr <= 1024): one warp per alignment
-// (one-warp blocks, so a few hundred lanes spread over every SM).  Thread
-// t holds C = ceil(Lr / 32) contiguous columns [t*C, t*C + C) of the H and
-// V rows and its window codes in registers (C a template parameter,
-// rounded up to the next instantiated width).  A row: the query code comes
-// by one shuffle from a register refilled every 32 rows; the diagonal
-// neighbour of a thread's first column by one __shfl_up_sync of the left
-// thread's last H; each thread's serial max of Ht + e*j, then a 5-step
-// shuffle scan of the thread maxima, gives the exclusive prefix max; the
-// row max is one __reduce_max_sync, and only on a row that moves the best
-// cell or ends the read does a ballot find its first column.
+// Design: one kernel (sw_unbanded_scan_kernel<R>) behind both entry
+// points, a column wavefront with the query rows in registers.  Thread t
+// of a warp owns R consecutive query rows of a stripe of 32 R rows, with
+// their query codes.  The warp sweeps the window 4 columns a step: at step
+// s thread t works on columns 4 (s - t) .. 4 (s - t) + 3 (Lr / 4 + 31
+// steps; a block before the window is skipped, so the state there keeps
+// its boundary values H = 0, F = NEG).  A step takes from thread t - 1,
+// through shared memory (two int4 slots a thread, double-buffered, one
+// __syncwarp a step), the H of the row above at those columns and the V
+// (vertical gap) of its first row; keeps the row above's H left of the
+// block from the step before (the diagonal); reads the 4 window codes as
+// one int4 from a copy of the window in shared memory; and computes its
+// R x 4 cells in anti-diagonal order.  Nothing is reduced across the warp
+// inside a step:
+//   - deletions are horizontal, so they stay in the thread: the twin's
+//     F(j) = max over j' < j of Ht(j') - o - e (j - j') is the recurrence
+//     F(j) = max(F(j - 1) - e, Ht(j - 1) - o - e) with F(0) = NEG, kept
+//     as F + e j.  The recurrence adds the term NEG - e j, below 0 <= Ht
+//     at every column, and the twin's key filter (keys below 0 count as
+//     NEG) drops no maximum, since column 0's key is >= 0: H = max(Ht, F)
+//     is the twin's for any o, e.  With o >= 0 the carry may read H for
+//     Ht (H - o - e <= Ht - o - e or <= F - e), which saves computing Ht;
+//   - V of row u + 1 is max(V(u) - e, Y(u) - o - e) with Y = max(diag, F,
+//     0), H = max(V, Y): exact for o >= 0 (V - o - e <= V - e), so the
+//     chain down a column is one max-of-sum a row (V kept as V + e u);
+//   - the last column block runs past the window when Lr is not a
+//     multiple of 4: its diagonal steps score NEG, so those cells get
+//     their values from real cells through gaps only and stay at or below
+//     the row max of the real cells (a real cell of the row is at least
+//     the gap's source less its vertical gap) when o, e >= 0; their
+//     negative key columns lose every tie.  The wrapper raises for o < 0
+//     or e < 0 on cuda;
+//   - the best cell: each row keeps max(h Lr + Lr - 1 - j), its max and
+//     first maximal column in one int32 (exact where the twin's key
+//     (Ht + e j) Lr + j is, ops/sw_unbanded.py:max_width); after the
+//     sweep one reduction over the rows, largest max then first row, in a
+//     64-bit key gives (score, qend, rend) as the twin's row-order scan
+//     with a strictly larger test does; the thread holding row qlen - 1
+//     gives (gscore, grend).
+// Rows at or past qlen run on (they feed only rows below them) and are
+// left out of the reduction.  The stripe loop is instantiated for lanes
+// with and without a query code >= 4 before qlen (without one, a cell's
+// score needs no mask) and for Lr a multiple of 4 or not.
 //
-// The wide scan (Lr > 1024) keeps the row (H, V and the window codes, 12
-// bytes a column) in shared memory, or in a device-memory scratch the
-// wrapper allocates where a block cannot hold it, and walks each row in
-// tiles of T = 32 * C columns (C in 20, 24, 32: the narrow layout, one
-// tile at a time, loaded into registers and stored back).  From tile to
-// tile, in column order, it carries the exclusive prefix max of Ht + e*j,
-// the previous row's H left of the tile (the diagonal neighbour of the
-// tile's first column: kept before the tile is overwritten), and the row
-// max with its first column (a later tile replaces it only when strictly
-// larger); V lives with the row.
+// Queries of more than 32 R rows are cut into stripes: a stripe's bottom
+// row (the H of its last row and the V of the next, 8 bytes a column)
+// goes to a buffer that the next stripe's thread 0 reads one step ahead.
+// A block runs `warps` warps, warp w the stripes w, w + warps, ...: each
+// stripe ~40 steps behind the one above it, signalled by a progress
+// counter a warp in shared memory (every 32 columns).  The buffers
+// (warps x Lr x 8 bytes) live in shared memory, or in a device scratch
+// the wrapper allocates where a block cannot hold them.  Layouts
+// (ops/sw_unbanded.py:scan_layout): one warp, one stripe, R the fewest
+// rows a thread up to 256 query rows (R = 5 at var's 150), else R = 8 on
+// up to 8 warps.
 //
 // What bounds the scan on this card: int32 instructions, 8 a cell
-// (ops/sw_unbanded.py:OPS_PER_CELL), against 132 SMs x 128 lanes x clock;
+// (ops/sw_unbanded.py:OPS_PER_CELL) against 132 SMs x 128 lanes x clock;
 // a call reads (Lq + Lr + 1) x 4 bytes and writes 20 bytes an alignment.
-// At var's ~280 lanes a call the instruction bound is a few microseconds
-// and one row's dependent chain (the H shuffle, the serial max, six scan
-// shuffles, the reduction) sets the pace instead: only more lanes a call,
-// or one alignment across several warps, would pass it.  The wide scan
-// adds a shared-memory load and store of H and V a cell.
+// One alignment's block stays on one SM, and a call of ~90-300
+// alignments leaves most schedulers idle, so a warp's step sets the pace:
+// ~7 ALU-pipe instructions a cell (the ALU pipe takes a warp instruction
+// every 2 clocks) and the step's chain (the hand-off, then R + 3 cells
+// down the block's anti-diagonals).  The max-of-sum steps are left to the
+// compiler (it emits VIADDMNMX): DPX intrinsics measured slower here.
 //
 // ssq_sw_unbanded_cigar replaces the XLA lax.scan + fori_loop traceback of
 // speedseq_tpu/align/sw.py:banded_sw (the unfused alignment API's
@@ -94,247 +128,315 @@ struct Scoring {
   int match, mis, open, ext;
 };
 
-template <int C>
-__global__ void __launch_bounds__(32)
-    sw_unbanded_kernel(const int* __restrict__ query,
-                       const int* __restrict__ qlen,
-                       const int* __restrict__ ref, int n, int Lq, int Lr,
-                       Scoring p, int* __restrict__ out, long stride) {
-  const int lane = blockIdx.x;
-  if (lane >= n) return;
-  const int t = threadIdx.x;
-  const int j0 = t * C;
-  const int* q = query + (long)lane * Lq;
-  const int* r = ref + (long)lane * Lr;
-  int rc[C], H[C], V[C], Ht[C];
-#pragma unroll
-  for (int k = 0; k < C; ++k) {
-    rc[k] = j0 + k < Lr ? r[j0 + k] : 4;
-    H[k] = 0;
-    V[k] = NEG;
+// ---- the haplotype scan: a column wavefront, query rows in registers ----
+
+constexpr int SCAN_MAX_WARPS = 8;
+constexpr int SCAN_COLS = 4;          // columns a thread a step (an int4)
+constexpr int SCAN_HEAD_INTS = 32;    // progress, the warps' best, (gs, gr)
+constexpr int SCAN_SLOT_INTS = 512;   // a warp's hand-off: 2 x 32 x (H, V)
+
+// Spin (all lanes) until a stripe's progress counter reaches `need`; the
+// fence orders the buffer reads after it.  A counter that never gets
+// there (a fault) traps after ~2^26 polls instead of holding the card.
+__device__ __forceinline__ void wait_progress(const volatile int* flag,
+                                              int need) {
+  for (int spin = 0; *flag < need; ++spin) {
+    if (spin > (1 << 26)) __trap();
+    __nanosleep(32);
   }
-  const int ql = qlen[lane];
-  const int rows = min(ql, Lq);
-  const int oe = p.open + p.ext;
-  int bs = 0, bq = 0, br = 0, gs = 0, gr = 0;
-  int qreg = 4;
-  for (int i = 0; i < rows; ++i) {
-    if ((i & 31) == 0) qreg = i + t < Lq ? q[i + t] : 4;
-    const int qc = __shfl_sync(FULL, qreg, i & 31);
-    const bool q_ok = qc < 4;
-    int left = __shfl_up_sync(FULL, H[C - 1], 1);
-    if (t == 0) left = 0;
-    // Ht, V and this thread's running max of Ht + e*j
-    int run = NEG;
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int sub = (q_ok && rc[k] < 4) ? (qc == rc[k] ? p.match : -p.mis)
-                                          : -1;
-      const int diag = sub + (k ? H[k - 1] : left);
-      const int vr = max(V[k] - p.ext, H[k] - oe);
-      V[k] = vr;
-      Ht[k] = j0 + k < Lr ? max(max(diag, vr), 0) : 0;
-      run = max(run, Ht[k] + p.ext * (j0 + k));
-    }
-    // exclusive prefix max of the thread maxima
-    int incl = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, d);
-      if (t >= d) incl = max(incl, y);
-    }
-    int pm = __shfl_up_sync(FULL, incl, 1);
-    if (t == 0) pm = NEG;
-    // H = max(Ht, F), and this thread's first maximal column
-    int tb = -1, tj = 0;
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const int j = j0 + k;
-      const int h = j < Lr ? max(Ht[k], pm - p.open - p.ext * j) : 0;
-      pm = max(pm, Ht[k] + p.ext * j);
-      H[k] = h;
-      if (h > tb) {
-        tb = h;
-        tj = j;
-      }
-    }
-    const int rowmax = __reduce_max_sync(FULL, tb);
-    const bool last = i == ql - 1;
-    if (rowmax > bs || last) {
-      // threads hold ascending columns: the lowest thread holding the max
-      // holds its first column
-      const unsigned hold = __ballot_sync(FULL, tb == rowmax);
-      const int rj = __shfl_sync(FULL, tj, __ffs(hold) - 1) + 1;
-      if (rowmax > bs) {
-        bs = rowmax;
-        bq = i + 1;
-        br = rj;
-      }
-      if (last) {
-        gs = rowmax;
-        gr = rj;
-      }
-    }
-  }
-  if (t == 0) {
-    out[lane] = bs;
-    out[stride + lane] = bq;
-    out[2 * stride + lane] = br;
-    out[3 * stride + lane] = gs;
-    out[4 * stride + lane] = gr;
-  }
+  __threadfence_block();
 }
 
-template <int C>
-int launch(const void* query, const void* qlen, const void* ref, int n,
-           int Lq, int Lr, Scoring p, void* out, long stride,
-           cudaStream_t stream) {
-  sw_unbanded_kernel<C><<<n, 32, 0, stream>>>(
-      (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr, p,
-      (int*)out, stride);
-  return (int)cudaGetLastError();
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Shared memory of a block: the head, the hand-off slots, the window's
+// codes (4 or more as 4), then the stripe buffers where they fit
+// (scan_buffer_ints of them, else a device scratch).
+__host__ __device__ inline long scan_fixed_ints(int Lr, int warps) {
+  return SCAN_HEAD_INTS + (long)SCAN_SLOT_INTS * warps + round4(Lr);
+}
+__host__ __device__ inline long scan_buffer_ints(int Lq, int Lr, int R,
+                                                 int warps) {
+  return Lq > 32 * R ? 2L * warps * round4(Lr) : 0;
 }
 
+// A block's shared state and arguments, for the stripe loop.
+struct ScanBlock {
+  const int* q;              // this lane's query
+  int Lq, Lr, Lp, rows, nstripes, warps;
+  Scoring p;
+  volatile int* progress;    // a warp's stripe progress
+  int4* slot;                // this warp's hand-off slots
+  const int4* win4;          // the window's codes, 4 a column block
+  int* bufH;                 // stripe buffers, H then V
+  int* bufV;
+  int* gsh;                  // (gscore, grend)
+  int ql;
+};
 
-// ---- the wide scan: Lr > 1024, the row in shared or device memory ------
-
-constexpr int WIDE_BYTES_PER_COL = 12;   // H, V and the window code, int32
-
-template <int C>
-__global__ void __launch_bounds__(32)
-    sw_unbanded_wide_kernel(const int* __restrict__ query,
-                            const int* __restrict__ qlen,
-                            const int* __restrict__ ref, int n, int Lq,
-                            int Lr, int ntiles, Scoring p,
-                            int* __restrict__ out, long stride,
-                            unsigned char* __restrict__ scratch) {
-  constexpr int T = 32 * C;
-  extern __shared__ int4 wide_smem[];
-  const int lane = blockIdx.x;
-  if (lane >= n) return;
-  const int t = threadIdx.x;
-  const long Lp = (long)ntiles * T;
-  // column j = tile*T + t*C + k lives at tile*T + k*32 + t: each thread
-  // touches only its own slots, and a warp's accesses are consecutive
-  int* Hrow = scratch ? (int*)(scratch + (long)lane * Lp * WIDE_BYTES_PER_COL)
-                      : (int*)wide_smem;
-  int* Vrow = Hrow + Lp;
-  int* Rrow = Vrow + Lp;
-  const int* q = query + (long)lane * Lq;
-  const int* r = ref + (long)lane * Lr;
-  for (int tile = 0; tile < ntiles; ++tile) {
+// This warp's stripes: returns the best (max, first row, column) key of
+// their rows.  NROW: some query row holds a code >= 4 (it scores -1
+// against every column); PART: Lr is not a multiple of 4, so the last
+// column block runs past the window.
+template <int R, bool NROW, bool PART>
+__device__ __forceinline__ unsigned long long scan_stripes(
+    const ScanBlock& b, int t, int w) {
+  constexpr int SR = 32 * R;
+  constexpr int C = SCAN_COLS;
+  const int Lq = b.Lq, Lr = b.Lr, Lp = b.Lp, rows = b.rows,
+            nstripes = b.nstripes, warps = b.warps;
+  const Scoring p = b.p;
+  const int* q = b.q;
+  volatile int* progress = b.progress;
+  int4* slot = b.slot;
+  const int4* win4 = b.win4;
+  int* bufH = b.bufH;
+  int* bufV = b.bufV;
+  int* gsh = b.gsh;
+  const int ql = b.ql;
+  const int nsteps = Lp / C + 31;
+  const int e = p.ext, oe = p.open + p.ext;
+  const int top_v = max(NEG - e, -oe);   // V of the query's first row
+  const int4 top_v4 = make_int4(top_v, top_v, top_v, top_v);
+  const int4 zero4 = make_int4(0, 0, 0, 0);
+  unsigned long long best = 0;
+  for (int k = w; k < nstripes; k += warps) {
+    const int i0 = k * SR + t * R;        // this thread's first row
+    int qk[R], qm[R], H[R], F[R], key[R];
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      const long s = (long)tile * T + k * 32 + t;
-      const int j = tile * T + t * C + k;
-      Hrow[s] = 0;
-      Vrow[s] = NEG;
-      Rrow[s] = j < Lr ? r[j] : 4;
+    for (int u = 0; u < R; ++u) {
+      const int c = i0 + u < Lq ? q[i0 + u] : 4;
+      qk[u] = c < 4 ? c : 5;   // 5 equals no window code (those are <= 4)
+      qm[u] = c < 4 ? 0 : -1;  // -1 | anything = -1: an N row scores -1
+      H[u] = 0;                // H at the column left of the block
+      F[u] = NEG;              // F + e j
+      key[u] = -1;
     }
-  }
-  const int ql = qlen[lane];
-  const int rows = min(ql, Lq);
-  const int oe = p.open + p.ext;
-  int bs = 0, bq = 0, br = 0, gs = 0, gr = 0;
-  int qreg = 4;
-  for (int i = 0; i < rows; ++i) {
-    if ((i & 31) == 0) qreg = i + t < Lq ? q[i + t] : 4;
-    const int qc = __shfl_sync(FULL, qreg, i & 31);
-    const bool q_ok = qc < 4;
-    int hdiag = 0;     // the previous row's H left of the tile
-    int pmc = NEG;     // max of Ht + e*j over the row's earlier tiles
-    int rb = -1, rj = 0;   // the row's max so far and its first column
-    for (int tile = 0; tile < ntiles; ++tile) {
-      const int j0 = tile * T + t * C;
-      int* Hs = Hrow + (long)tile * T + t;
-      int* Vs = Vrow + (long)tile * T + t;
-      const int* Rs = Rrow + (long)tile * T + t;
-      int H[C], V[C], Ht[C];
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        H[k] = Hs[k * 32];
-        V[k] = Vs[k * 32];
+    const bool src = k > 0;                 // the rows above: a stripe's
+    const bool dst = k + 1 < nstripes;      // bottom row is read below
+    const int ws = src ? (k - 1) % warps : 0;
+    const int sbase = src ? (k - 1) / warps * Lr : 0;
+    const int4* sH = reinterpret_cast<const int4*>(bufH + (long)ws * Lp);
+    const int4* sV = reinterpret_cast<const int4*>(bufV + (long)ws * Lp);
+    int4* dH = reinterpret_cast<int4*>(bufH + (long)w * Lp);
+    int4* dV = reinterpret_cast<int4*>(bufV + (long)w * Lp);
+    const int dbase = k / warps * Lr;
+    // thread 0's rows above for the next step: the boundary, or the
+    // stripe above's bottom row
+    int4 nH = zero4, nV = top_v4;
+    if (src) {
+      wait_progress(progress + ws, sbase + min(32, Lr));
+      nH = sH[0];
+      nV = sV[0];
+    }
+    int upHd = 0;                  // H of the row above left of the block
+    int4 botH = zero4, botV = top_v4;   // the last row's H, the next row's V
+    __syncwarp();
+    slot[64 + 2 * t] = botH;       // "step -1", parity 1
+    slot[65 + 2 * t] = botV;
+    int4 rkn = win4[0];
+    for (int s = 0; s < nsteps; ++s) {
+      const int j0 = C * (s - t);           // this step's first column
+      __syncwarp();
+      const int4* from = slot + 64 * ((s + 1) & 1) + 2 * ((t + 31) & 31);
+      int4 uH = from[0], uV = from[1];
+      if (t == 0) {
+        uH = nH;
+        uV = nV;
       }
-      int left = __shfl_up_sync(FULL, H[C - 1], 1);
-      if (t == 0) left = hdiag;
-      hdiag = __shfl_sync(FULL, H[C - 1], 31);
-      int run = NEG;
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int rc = Rs[k * 32];
-        const int sub = (q_ok && rc < 4) ? (qc == rc ? p.match : -p.mis) : -1;
-        const int diag = sub + (k ? H[k - 1] : left);
-        const int vr = max(V[k] - p.ext, H[k] - oe);
-        V[k] = vr;
-        Ht[k] = j0 + k < Lr ? max(max(diag, vr), 0) : 0;
-        run = max(run, Ht[k] + p.ext * (j0 + k));
-      }
-      int incl = run;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(FULL, incl, d);
-        if (t >= d) incl = max(incl, y);
-      }
-      int pm = __shfl_up_sync(FULL, incl, 1);
-      pm = t == 0 ? pmc : max(pm, pmc);
-      pmc = max(pmc, __shfl_sync(FULL, incl, 31));
-      int tb = -1, tj = 0;
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        const int j = j0 + k;
-        const int h = j < Lr ? max(Ht[k], pm - p.open - p.ext * j) : 0;
-        pm = max(pm, Ht[k] + p.ext * j);
-        Hs[k * 32] = h;
-        Vs[k * 32] = V[k];
-        if (h > tb) {
-          tb = h;
-          tj = j;
+      const int4 rk4 = rkn;
+      rkn = win4[(unsigned)(j0 + C) < (unsigned)Lp ? (j0 >> 2) + 1 : 0];
+      if (src) {                            // the next step's, for thread 0
+        const int c1 = C * (s + 1);
+        if (c1 < Lp) {
+          if ((c1 & 31) == 0)
+            wait_progress(progress + ws, sbase + min(c1 + 32, Lr));
+          nH = sH[c1 >> 2];
+          nV = sV[c1 >> 2];
         }
       }
-      const int tmax = __reduce_max_sync(FULL, tb);
-      if (tmax > rb) {   // a later tile takes the row max only when larger
-        const unsigned hold = __ballot_sync(FULL, tb == tmax);
-        rj = __shfl_sync(FULL, tj, __ffs(hold) - 1);
-        rb = tmax;
+      if (j0 >= 0 && j0 < Lr) {
+        const int rk[C] = {rk4.x, rk4.y, rk4.z, rk4.w};
+        int hup[C] = {uH.x, uH.y, uH.z, uH.w};   // the row above's H
+        int v[C] = {uV.x, uV.y, uV.z, uV.w};     // V of row u, + e u
+        int misj[C], off[C], ej[C], cF[C], ck[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int j = j0 + c;
+          misj[c] = rk[c] < 4 ? -p.mis : -1;
+          off[c] = PART && j >= Lr ? NEG : 0;   // none past the window
+          ej[c] = e * j;
+          cF[c] = ej[c] - p.open;           // F + e (j + 1) from H
+          ck[c] = Lr - 1 - j;               // the row key's column part
+        }
+        // the R x C cells in anti-diagonal order: the cells of one
+        // anti-diagonal depend on none of each other, so the in-order
+        // issue finds independent work between a cell's dependent steps
+        int hh[R][C];             // this step's H
+#pragma unroll
+        for (int d = 0; d < R + C - 1; ++d) {
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const int c = d - u;
+            if (c < 0 || c >= C) continue;
+            const int hd = c ? (u ? hh[u - 1][c - 1] : hup[c - 1])
+                             : (u ? H[u - 1] : upHd);
+            const int sub = qk[u] == rk[c] ? p.match
+                                           : NROW ? misj[c] | qm[u] : misj[c];
+            const int y = max(max(hd + sub + off[c], F[u] - ej[c]), 0);
+            const int h = max(v[c] - e * u, y);
+            v[c] = max(y + (e * (u + 1) - oe), v[c]);
+            F[u] = max(h + cF[c], F[u]);
+            key[u] = max(key[u], h * Lr + ck[c]);
+            hh[u][c] = h;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) H[u] = hh[u][C - 1];
+        botH = make_int4(hh[R - 1][0], hh[R - 1][1], hh[R - 1][2],
+                         hh[R - 1][3]);
+        botV = make_int4(v[0] - e * R, v[1] - e * R, v[2] - e * R,
+                         v[3] - e * R);
+        if (dst && t == 31) {
+          dH[j0 >> 2] = botH;
+          dV[j0 >> 2] = botV;
+          const int done = min(j0 + C, Lr);
+          if ((done & 31) == 0 || done == Lr) {
+            __threadfence_block();
+            progress[w] = dbase + done;
+          }
+        }
+      }
+      upHd = uH.w;
+      slot[64 * (s & 1) + 2 * t] = botH;
+      slot[64 * (s & 1) + 2 * t + 1] = botV;
+    }
+    // this stripe's rows: the largest max, then the first row, in a key
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const int i = i0 + u;
+      if (i < rows) {
+        const int rm = key[u] / Lr, col = Lr - 1 - key[u] % Lr;
+        best = max(best, ((unsigned long long)rm << 32) |
+                             ((unsigned long long)(65535 - i) << 16) | col);
+        if (i == ql - 1) {
+          gsh[0] = rm;
+          gsh[1] = col + 1;
+        }
       }
     }
-    if (rb > bs) {
-      bs = rb;
-      bq = i + 1;
-      br = rj + 1;
-    }
-    if (i == ql - 1) {
-      gs = rb;
-      gr = rj + 1;
-    }
   }
-  if (t == 0) {
+  return best;
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * SCAN_MAX_WARPS)
+    sw_unbanded_scan_kernel(const int* __restrict__ query,
+                            const int* __restrict__ qlen,
+                            const int* __restrict__ ref, int n, int Lq,
+                            int Lr, int warps, Scoring p,
+                            int* __restrict__ out, long stride,
+                            int* __restrict__ scratch) {
+  static_assert(SCAN_COLS == 4, "a step's columns travel as one int4");
+  extern __shared__ int4 scan_smem4[];
+  int* scan_smem = reinterpret_cast<int*>(scan_smem4);
+  const int lane = blockIdx.x;
+  if (lane >= n) return;
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  ScanBlock b;
+  b.Lq = Lq;
+  b.Lr = Lr;
+  b.Lp = round4(Lr);
+  b.warps = warps;
+  b.p = p;
+  b.progress = scan_smem;
+  unsigned long long* best_w =
+      reinterpret_cast<unsigned long long*>(scan_smem + SCAN_MAX_WARPS);
+  b.gsh = scan_smem + 3 * SCAN_MAX_WARPS;
+  // this warp's hand-off slots: [parity][thread][H, V], an int4 each
+  b.slot = reinterpret_cast<int4*>(scan_smem + SCAN_HEAD_INTS +
+                                   SCAN_SLOT_INTS * w);
+  int* win = scan_smem + SCAN_HEAD_INTS + SCAN_SLOT_INTS * warps;
+  b.win4 = reinterpret_cast<const int4*>(win);
+  // stripe buffers: warp w's bottom rows, H then V, Lp columns each
+  b.bufH = scratch ? scratch + (long)lane * 2 * warps * b.Lp : win + b.Lp;
+  b.bufV = b.bufH + (long)warps * b.Lp;
+  b.q = query + (long)lane * Lq;
+  const int* r = ref + (long)lane * Lr;
+  b.ql = qlen[lane];
+  b.rows = min(b.ql, Lq);
+  b.nstripes = b.rows > 0 ? (b.rows + 32 * R - 1) / (32 * R) : 0;
+  if (threadIdx.x < SCAN_MAX_WARPS) b.progress[threadIdx.x] = 0;
+  for (int j = threadIdx.x; j < b.Lp; j += blockDim.x) {
+    const int c = j < Lr ? r[j] : 4;
+    win[j] = c < 4 ? c : 4;
+  }
+  int nrow = 0;                   // a query row of a code >= 4
+  for (int i = threadIdx.x; i < b.rows; i += blockDim.x)
+    nrow |= b.q[i] >= 4;
+  nrow = __syncthreads_or(nrow);
+  unsigned long long best;
+  if (Lr & 3)
+    best = nrow ? scan_stripes<R, true, true>(b, t, w)
+                : scan_stripes<R, false, true>(b, t, w);
+  else
+    best = nrow ? scan_stripes<R, true, false>(b, t, w)
+                : scan_stripes<R, false, false>(b, t, w);
+  const int* gsh = b.gsh;
+  const int ql = b.ql;
+#pragma unroll
+  for (int d = 16; d; d >>= 1)
+    best = max(best, __shfl_xor_sync(FULL, best, d));
+  if (t == 0) best_w[w] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int x = 1; x < warps; ++x) best = max(best, best_w[x]);
+    const int bs = (int)(best >> 32);
+    const bool g = ql >= 1 && ql <= Lq;
     out[lane] = bs;
-    out[stride + lane] = bq;
-    out[2 * stride + lane] = br;
-    out[3 * stride + lane] = gs;
-    out[4 * stride + lane] = gr;
+    out[stride + lane] = bs > 0 ? 65536 - (int)((best >> 16) & 0xffff) : 0;
+    out[2 * stride + lane] = bs > 0 ? (int)(best & 0xffff) + 1 : 0;
+    out[3 * stride + lane] = g ? gsh[0] : 0;
+    out[4 * stride + lane] = g ? gsh[1] : 0;
   }
 }
 
-template <int C>
-int launch_wide(const void* query, const void* qlen, const void* ref, int n,
-                int Lq, int Lr, int ntiles, Scoring p, void* out, long stride,
+template <int R>
+int launch_scan(const void* query, const void* qlen, const void* ref, int n,
+                int Lq, int Lr, int warps, Scoring p, void* out, long stride,
                 void* scratch, cudaStream_t stream) {
-  size_t smem = 0;
-  if (!scratch) {
-    smem = (size_t)ntiles * 32 * C * WIDE_BYTES_PER_COL;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          sw_unbanded_wide_kernel<C>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
+  size_t smem = sizeof(int) * (scan_fixed_ints(Lr, warps) +
+                               (scratch ? 0 : scan_buffer_ints(Lq, Lr, R,
+                                                               warps)));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sw_unbanded_scan_kernel<R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  sw_unbanded_wide_kernel<C><<<n, 32, smem, stream>>>(
-      (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr,
-      ntiles, p, (int*)out, stride, (unsigned char*)scratch);
+  sw_unbanded_scan_kernel<R><<<n, 32 * warps, smem, stream>>>(
+      (const int*)query, (const int*)qlen, (const int*)ref, n, Lq, Lr, warps,
+      p, (int*)out, stride, (int*)scratch);
   return (int)cudaGetLastError();
+}
+
+int launch_scan_rows(int R, const void* query, const void* qlen,
+                     const void* ref, int n, int Lq, int Lr, int warps,
+                     Scoring p, void* out, long stride, void* scratch,
+                     cudaStream_t s) {
+#define SSQ_SCAN(X)                                                       \
+  if (R == X)                                                             \
+    return launch_scan<X>(query, qlen, ref, n, Lq, Lr, warps, p, out,     \
+                          stride, scratch, s);
+  SSQ_SCAN(1)
+  SSQ_SCAN(2)
+  SSQ_SCAN(3)
+  SSQ_SCAN(4)
+  SSQ_SCAN(5)
+  SSQ_SCAN(6)
+  SSQ_SCAN(8)
+#undef SSQ_SCAN
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- DP with traceback: banded_sw's contract, Lr <= 256 -----------------
@@ -636,62 +738,48 @@ extern "C" {
 
 // All pointers are device pointers to contiguous int32 arrays: query
 // (n, Lq), qlen (n,), ref (n, Lr), out (5, out_stride) = score, qend, rend,
-// gscore, grend.  Needs 0 <= Lq <= Lr <= 1024, Lr >= 1.  Returns
-// cudaGetLastError() after the launch.
+// gscore, grend.  Needs 0 <= Lq <= Lr <= 1024, Lr >= 1 and gap open >= 0;
+// the layout is ops/sw_unbanded.py:scan_layout's (the stripe buffers, at
+// most 32 KB, in shared memory).  Returns cudaGetLastError() after the
+// launch.
 int ssq_sw_unbanded_score(const void* query, const void* qlen,
                           const void* ref, int n, int Lq, int Lr, int p_match,
                           int p_mis, int p_open, int p_ext, void* out,
                           long out_stride, void* stream) {
   if (n <= 0) return 0;
-  if (Lq < 0 || Lq > Lr || Lr < 1 || Lr > MAX_LR)
+  if (Lq < 0 || Lq > Lr || Lr < 1 || Lr > MAX_LR || p_open < 0 || p_ext < 0)
     return (int)cudaErrorInvalidValue;
-  const Scoring p{p_match, p_mis, p_open, p_ext};
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int need = (Lr + 31) / 32;
-#define SSQ_UNBANDED(C)                                                  \
-  if (need <= C)                                                         \
-    return launch<C>(query, qlen, ref, n, Lq, Lr, p, out, out_stride, s);
-  SSQ_UNBANDED(2)
-  SSQ_UNBANDED(4)
-  SSQ_UNBANDED(6)
-  SSQ_UNBANDED(8)
-  SSQ_UNBANDED(10)
-  SSQ_UNBANDED(12)
-  SSQ_UNBANDED(16)
-  SSQ_UNBANDED(20)
-  SSQ_UNBANDED(24)
-  SSQ_UNBANDED(32)
-#undef SSQ_UNBANDED
-  return (int)cudaErrorInvalidValue;
+  // one warp and one stripe up to 256 rows, else stripes of 256 rows on
+  // up to 8 warps (at most 4 here)
+  int R = 8, warps = min((Lq + 255) / 256, SCAN_MAX_WARPS);
+  if (Lq <= 256) {
+    R = max((Lq + 31) / 32, 1);
+    R = R == 7 ? 8 : R;
+    warps = 1;
+  }
+  return launch_scan_rows(R, query, qlen, ref, n, Lq, Lr, warps,
+                          Scoring{p_match, p_mis, p_open, p_ext}, out,
+                          out_stride, nullptr, (cudaStream_t)stream);
 }
 
-// The wide scan (Lr > 1024), the same arrays and outputs as
-// ssq_sw_unbanded_score; C (20, 24 or 32) and ntiles chosen by the wrapper
-// with ntiles * 32 * C >= Lr.  scratch: NULL to keep the row in shared
-// memory (ntiles * 32 * C * 12 bytes a block), else a device buffer of
-// that many bytes a lane.  Needs 0 <= Lq <= Lr.
+// The same scan at any width up to the wrapper's max_width, with the
+// layout given: R query rows a thread (1-6 or 8) and `warps`
+// (1-8) warps a block.  scratch: NULL to keep the stripe buffers in shared
+// memory, else a device buffer of 2 x warps x Lr int32 a lane (needed
+// only where Lq > 32 R).  Needs 0 <= Lq <= Lr, Lr >= 1, gap open >= 0.
 int ssq_sw_unbanded_score_wide(const void* query, const void* qlen,
                                const void* ref, int n, int Lq, int Lr,
-                               int C, int ntiles, int p_match, int p_mis,
+                               int R, int warps, int p_match, int p_mis,
                                int p_open, int p_ext, void* out,
                                long out_stride, void* scratch, void* stream) {
   if (n <= 0) return 0;
-  if (Lq < 0 || Lq > Lr || Lr < 1 || ntiles < 1 ||
-      (long)ntiles * 32 * C < Lr)
+  if (Lq < 0 || Lq > Lr || Lr < 1 || warps < 1 || warps > SCAN_MAX_WARPS ||
+      p_open < 0 || p_ext < 0)
     return (int)cudaErrorInvalidValue;
-  const Scoring p{p_match, p_mis, p_open, p_ext};
-  const cudaStream_t s = (cudaStream_t)stream;
-#define SSQ_WIDE(W)                                                        \
-  if (C == W)                                                              \
-    return launch_wide<W>(query, qlen, ref, n, Lq, Lr, ntiles, p, out,     \
-                          out_stride, scratch, s);
-  SSQ_WIDE(20)
-  SSQ_WIDE(24)
-  SSQ_WIDE(32)
-#undef SSQ_WIDE
-  return (int)cudaErrorInvalidValue;
+  return launch_scan_rows(R, query, qlen, ref, n, Lq, Lr, warps,
+                          Scoring{p_match, p_mis, p_open, p_ext}, out,
+                          out_stride, scratch, (cudaStream_t)stream);
 }
-
 // banded_sw's DP and traceback: query (n, Lq), qlen (n,), ref (n, Lr)
 // int32; out (8, out_stride) int32 = score, qbeg, qend, rbeg, rend, n_ops,
 // gscore, grend; ops (n, max_ops) int8 (-1 padding), lens (n, max_ops)

@@ -17,7 +17,7 @@ key (Ht + e*j) * Lr + j, so a tie takes the largest column), the best
 cell the first maximum over all Lq rows, then banded_sw's traceback
 state machine; all ten SWResult fields.
 
-A CUDA tensor launches a hand kernel of ``csrc/sw_unbanded.cu`` (one warp
+A CUDA tensor launches a hand kernel of ``csrc/sw_unbanded.cu`` (one block
 an alignment; it raises if the launch fails), a CPU tensor runs the plain
 twin (``sw_score_unbanded_plain``, ``sw_cigar_unbanded_plain``), a loop of
 tensor ops a query row, which is the kernel's executable specification.
@@ -27,8 +27,10 @@ Shapes: query (N, Lq) and ref (N, Lr) codes, qlen (N,).
 - The scan takes Lr up to ``max_width(params)`` on every device (32,768
   at bwa scoring): past it the int32 key (Ht + e*j) * Lr + j of the twin,
   and of the JAX scan, no longer holds its value exactly.  The kernel also
-  needs Lq <= Lr; it keeps the row in registers up to Lr = 1024 and walks
-  it in tiles of up to 1,024 columns above (``wide_layout``).
+  needs Lq <= Lr and gap penalties >= 0; it keeps R query rows a thread in
+  registers and sweeps the window's columns (``scan_layout``): the narrow
+  entry up to Lr = 1024, the wide one above, with the stripe buffers in a
+  device scratch where a block cannot hold them.
 - The traceback DP takes Lr <= 256 on every device (banded_sw stores the
   deletion distance as uint8) and Lq >= 1; its kernel keeps a lane's
   direction codes in shared memory, 128 bytes a row: Lq <= 1792 on cuda.
@@ -46,9 +48,10 @@ import torch
 from .nvcc_build import CSRC_DIR, build_library
 
 NEG = -(10 ** 6)
-MAX_LR = 1024                 # the narrow scan's row, in registers
-WIDE_WIDTHS = (20, 24, 32)    # columns a thread in a tile of the wide scan
-WIDE_BYTES_PER_COL = 12       # H, V and the window code of a wide row
+MAX_LR = 1024                 # the narrow entry's widest window
+SCAN_ROWS = (1, 2, 3, 4, 5, 6, 8)   # the kernel's R (rows a thread)
+SCAN_WARPS = 8                # warps a block above one stripe
+SCAN_COLS = 4                 # columns a thread takes a wavefront step
 SMEM_MAX = 232_448            # shared memory one block may take on sm_90
 CIGAR_MAX_LR = 256
 CIGAR_MAX_LQ = 1792
@@ -148,20 +151,38 @@ def check_width(Lr: int, params=(1, 4, 6, 1)) -> None:
 
 
 def check_kernel_shape(Lq: int, Lr: int, params=(1, 4, 6, 1)) -> None:
-    """Raises ValueError unless the kernel takes (Lq, Lr): Lq <= Lr <=
-    max_width(params)."""
+    """Raises ValueError unless the kernel takes (Lq, Lr) and the
+    scoring: Lq <= Lr <= max_width(params), gap open and extension >= 0
+    (the kernel carries V and the deletion state from H, not Ht, and lets
+    the cells past the window run on, which is exact only there)."""
     check_width(Lr, params)
     if Lq > Lr:
         raise ValueError(f"the kernel needs Lq <= Lr, got Lq={Lq} Lr={Lr}")
+    if min(params[2], params[3]) < 0:
+        raise ValueError(f"the kernel needs gap open and extension >= 0, "
+                         f"got {tuple(params)}")
 
 
-def wide_layout(Lr: int) -> tuple:
-    """(C, ntiles) of the wide scan at Lr > MAX_LR: as few tiles of at most
-    1,024 columns as hold the row, C the smallest of WIDE_WIDTHS columns a
-    thread that fills them."""
-    ntiles = -(-Lr // MAX_LR)
-    C = next(w for w in WIDE_WIDTHS if 32 * w * ntiles >= Lr)
-    return C, -(-Lr // (32 * C))
+def scan_layout(Lq: int, warps: int = SCAN_WARPS) -> tuple:
+    """(R, warps) of the scan kernel, as csrc/sw_unbanded.cu's narrow
+    entry picks it: one warp and one stripe of 32 R rows, R the fewest of
+    SCAN_ROWS that hold the query, up to 256 rows; above, stripes of 256
+    rows (R = 8) on up to ``warps`` warps a block."""
+    if Lq <= 256:
+        return next(R for R in SCAN_ROWS if 32 * R >= Lq), 1
+    return 8, min(-(-Lq // 256), warps)
+
+
+def scan_smem_bytes(Lq: int, Lr: int, R: int, warps: int) -> tuple:
+    """(fixed, buffers): the shared memory a block of the scan takes
+    (its head, a warp's hand-off slots, the window's codes), and the bytes
+    of its stripe buffers (warps x Lr columns x (H, V) int32, rows padded
+    to 4 columns) where the query takes more than one stripe; the wrapper
+    keeps the buffers in shared memory where both fit in SMEM_MAX, else in
+    a device scratch."""
+    Lp = -(-Lr // 4) * 4
+    return (128 + 2048 * warps + 4 * Lp,
+            8 * warps * Lp if Lq > 32 * R else 0)
 
 
 def sw_score_unbanded(query, qlen, ref, params=(1, 4, 6, 1)):
@@ -185,13 +206,14 @@ def sw_score_unbanded(query, qlen, ref, params=(1, 4, 6, 1)):
                     q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr,
                     *params, out.data_ptr(), N, stream)
             else:
-                C, ntiles = wide_layout(Lr)
-                row = ntiles * 32 * C * WIDE_BYTES_PER_COL
-                scratch = (None if row <= SMEM_MAX else torch.empty(
-                    N * row, dtype=torch.uint8, device=dev))
+                R, warps = scan_layout(Lq)
+                fixed, buf = scan_smem_bytes(Lq, Lr, R, warps)
+                scratch = (None if fixed + buf <= SMEM_MAX
+                           else torch.empty(N * buf, dtype=torch.uint8,
+                                            device=dev))
                 rc = lib.ssq_sw_unbanded_score_wide(
-                    q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, C,
-                    ntiles, *params, out.data_ptr(), N,
+                    q.data_ptr(), ql.data_ptr(), r.data_ptr(), N, Lq, Lr, R,
+                    warps, *params, out.data_ptr(), N,
                     None if scratch is None else scratch.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"sw_unbanded_score launch failed: "

@@ -186,31 +186,74 @@ def test_hap_scan_cuda_matches_cpu(seed):
     (150, 192, BWA), (250, 320, BWA), (300, 1024, BWA), (150, 200, BWA),
     (250, 320, CHEAP_GAP), (180, 256, BWA), (1000, 1088, BWA),
     (300, 2112, BWA), (300, 4160, CHEAP_GAP), (64, 20000, BWA),
-    (64, 32768, BWA)],
+    (64, 32768, BWA), (1, 192, BWA), (256, 320, BWA), (257, 320, BWA),
+    (257, 1088, CHEAP_GAP), (2100, 2200, BWA), (300, 32768, BWA),
+    (2100, 20000, CHEAP_GAP)],
     ids=["150x192", "250x320", "300x1024", "150x200-pad",
          "250x320-cheap-gap", "180x256-long-deletions", "wide-1000x1088",
          "wide-300x2112", "wide-300x4160-cheap-gap",
-         "wide-64x20000-device-memory-row", "wide-64x32768-width-limit"])
+         "wide-64x20000-device-memory-row", "wide-64x32768-width-limit",
+         "Lq-1", "one-stripe-256x320", "stripe-and-a-row-257x320",
+         "wide-stripe-and-a-row-257x1088", "wide-2100x2200-two-passes",
+         "wide-300x32768-device-scratch",
+         "wide-2100x20000-device-scratch-two-passes"])
 def test_unbanded_kernel_matches_twin(Lq, Lr, params):
     """ssq_sw_unbanded_score against its twin on the card, all five
     outputs bit-equal: var's shape (150 x 192), 250 bp reads (250 x 320),
     the widest narrow window, a width with padding columns, cheap gaps,
-    deletions past the Pallas cap (utils/var_cases.unbanded_lanes), and
-    the wide kernel: 1,000 bp reads (1088), 2112 and 4160 (rows in shared
-    memory), 20,000 (a row a block cannot hold, in device memory) and
-    the width limit at bwa scoring (32,768)."""
+    deletions past the Pallas cap (utils/var_cases.unbanded_lanes), Lq 1,
+    Lq not a multiple of 32 R (150, 1000, 2100), a stripe boundary (Lq =
+    32 R = 256 and 257: a second stripe of one row), and the wide entry:
+    1,000 bp reads (1088), 2112 and 4160, 9 stripes on 8 warps (two
+    passes) at 2200 and 20,000, 20,000 and 32,768 (the width limit at bwa
+    scoring) with one stripe (no buffer) and with several (stripe buffers
+    in a device scratch where a block cannot hold them)."""
     _need_card()
     from speedseq_tpu_torch.ops import sw_unbanded
     from speedseq_tpu_torch.utils.var_cases import unbanded_lanes
 
-    q, ql, r = (torch.from_numpy(a).cuda()
-                for a in unbanded_lanes(Lq, Lr, seed=Lq + Lr))
+    if Lq > 1:
+        host = unbanded_lanes(Lq, Lr, seed=Lq + Lr)
+    else:                  # codes -1..5, qlen -1..2
+        rng = np.random.default_rng(Lr)
+        host = (rng.integers(-1, 6, (64, Lq)).astype(np.int32),
+                rng.integers(-1, 3, 64).astype(np.int32),
+                rng.integers(-1, 6, (64, Lr)).astype(np.int32))
+    q, ql, r = (torch.from_numpy(a).cuda() for a in host)
     before = sw_unbanded.LAUNCHES["sw_unbanded_score"]
     got = sw_unbanded.sw_score_unbanded(q, ql, r, params)
     torch.cuda.synchronize()
     assert sw_unbanded.LAUNCHES["sw_unbanded_score"] == before + 1
     want = sw_unbanded.sw_score_unbanded_plain(q, ql, r, params)
     for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("R,warps", [(8, 1), (8, 2), (8, 8), (4, 8),
+                                     (6, 4), (3, 8), (2, 8)])
+def test_unbanded_scan_layouts_match_twin(R, warps):
+    """The wide entry at layouts other than scan_layout's (rows a thread,
+    warps a block: one warp running every stripe through its own buffer,
+    more warps than stripes) on 1,000 bp reads (1000 x 1088), bit-equal
+    to the twin."""
+    _need_card()
+    from speedseq_tpu_torch.ops import sw_unbanded
+    from speedseq_tpu_torch.utils.var_cases import unbanded_lanes
+
+    q, ql, r = (torch.from_numpy(a).cuda()
+                for a in unbanded_lanes(1000, 1088, seed=2088))
+    n, Lq, Lr = q.shape[0], q.shape[1], r.shape[1]
+    out = torch.empty((5, n), dtype=torch.int32, device="cuda")
+    assert sum(sw_unbanded.scan_smem_bytes(Lq, Lr, R, warps)) <= \
+        sw_unbanded.SMEM_MAX
+    rc = sw_unbanded._load().ssq_sw_unbanded_score_wide(
+        q.data_ptr(), ql.data_ptr(), r.data_ptr(), n, Lq, Lr, R, warps,
+        *BWA, out.data_ptr(), n, None,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = sw_unbanded.sw_score_unbanded_plain(q, ql, r, BWA)
+    for a, b in zip(out, want):
         assert torch.equal(a.cpu(), b.cpu())
 
 
@@ -239,8 +282,8 @@ def test_unbanded_kernel_from_four_threads():
 
 def test_unbanded_kernel_refuses_what_it_cannot_take():
     """On a CUDA tensor the wrapper raises past the width limit (32,768 at
-    bwa scoring) and for Lq > Lr, launching nothing (no fallback to the
-    twin), and takes every width below: var's call_window on cuda, on a
+    bwa scoring), for Lq > Lr and for gap penalties below 0, launching
+    nothing (no fallback to the twin), and takes every width below: var's call_window on cuda, on a
     window of 1,000 bp reads (Lr 1088: the wide kernel, one launch), gives
     the CPU twin's calls (tests/test_torch_var.py's long-reads-mnp
     window)."""
@@ -256,6 +299,9 @@ def test_unbanded_kernel_refuses_what_it_cannot_take():
         sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 32769))
     with pytest.raises(ValueError, match="Lq <= Lr"):
         sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 149))
+    with pytest.raises(ValueError, match="gap open and extension >= 0"):
+        sw_unbanded.sw_score_unbanded(z(2, 150), z(2), z(2, 192),
+                                      (1, 4, -1, 1))
     assert sw_unbanded.LAUNCHES == before
     g = np.random.default_rng(13).integers(0, 4, 1000).astype(np.uint8)
     ref = "".join("ACGT"[c] for c in g)
