@@ -14,11 +14,19 @@ the sorting chainer and the unbanded traceback DP ``sw.banded_sw`` over
 every chain, on the tensors' device) and its host selection
 (``choose_candidates``, ``select_alignments``, ``finalize_alignments``:
 the JAX package's numpy code, each fetching its tensors once).
+
+The fused step runs in five stages, each a span ``align.stage.<s>``
+(``utils/metrics.py``): ``seed_chain``, ``select``, ``extend``,
+``rescue_xa`` and ``pack``.  Inside ``stage_marks`` on cuda each stage
+also records a CUDA event where it ends, so its stream span can be read
+once the step has run.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import threading
+from contextlib import contextmanager
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +34,7 @@ import torch.nn.functional as Fn
 
 from ..index.fm import FMIndex, get_ref_window_packed
 from ..index.kmer import KmerIndex, find_seeds_hash
+from ..utils.metrics import metrics
 from .chain import chain_seeds, chain_seeds_nms
 from .seeding import find_seeds
 from .sw import SWParams, banded_sw, banded_sw_pallas, banded_sw_score_pallas
@@ -505,6 +514,72 @@ def _extend_xa(fm: FMIndex, sc: ScoredChains, xa_mask, reads, lengths,
 DEFAULT_DISTRO = (300.0, 100.0, 50.0, 700.0)
 
 
+class StageMarks:
+    """CUDA events at the stage boundaries of one device step: one where
+    the first stage begins, then one where each stage segment ends.
+    Consecutive segments of one stage share their end event (it is
+    recorded again), so the marks tile the step."""
+
+    def __init__(self, take: Callable[[], "torch.cuda.Event"]):
+        self._take = take
+        self.events: list = []
+        self.stages: list = []
+
+    def begin(self) -> None:
+        if not self.events:
+            self.events.append(self._take())
+            self.events[0].record()
+
+    def end(self, stage: str) -> None:
+        if self.stages and self.stages[-1] == stage:
+            self.events[-1].record()
+            return
+        ev = self._take()
+        ev.record()
+        self.events.append(ev)
+        self.stages.append(stage)
+
+    def seconds(self) -> Dict[str, float]:
+        """Each stage's stream seconds; every event must have completed."""
+        out: Dict[str, float] = {}
+        for st, a, b in zip(self.stages, self.events, self.events[1:]):
+            out[st] = out.get(st, 0.0) + a.elapsed_time(b) / 1e3
+        return out
+
+
+_marks = threading.local()
+
+
+@contextmanager
+def stage_marks(take: Optional[Callable[[], "torch.cuda.Event"]]):
+    """Within, on the calling thread, the fused step's stages record
+    their boundaries as CUDA events from ``take()`` (timing events, on
+    the current stream); yields the StageMarks, or None when ``take`` is
+    None."""
+    if take is None:
+        yield None
+        return
+    m = StageMarks(take)
+    _marks.current = m
+    try:
+        yield m
+    finally:
+        _marks.current = None
+
+
+@contextmanager
+def _stage(name: str):
+    """Span ``align.stage.<name>``, and its stream marks inside
+    stage_marks."""
+    m = getattr(_marks, "current", None)
+    with metrics.timer("align.stage." + name):
+        if m is not None:
+            m.begin()
+        yield
+        if m is not None:
+            m.end(name)
+
+
 def fused_align_step(fm: FMIndex, reads1, lengths1, reads2=None,
                      lengths2=None, distro: Optional[torch.Tensor] = None,
                      n_chains: int = 4, stride: int = 8,
@@ -523,15 +598,17 @@ def fused_align_step(fm: FMIndex, reads1, lengths1, reads2=None,
         kw["params"] = params
     else:
         raise ValueError(f"unknown score_mode {score_mode!r}")
-    sc1 = phase1(fm, reads1, lengths1, **kw)
-    if paired and reads2 is not None:
-        sc2 = phase1(fm, reads2, lengths2, **kw)
-        if distro is None:
-            distro = torch.tensor(DEFAULT_DISTRO, dtype=torch.float32,
-                                  device=reads1.device)
-        k1, k2 = _device_pair_select(sc1, sc2, distro)
-    else:
-        sc2, k1, k2 = None, None, None
+    with _stage("seed_chain"):
+        sc1 = phase1(fm, reads1, lengths1, **kw)
+        sc2 = (phase1(fm, reads2, lengths2, **kw)
+               if paired and reads2 is not None else None)
+    k1 = k2 = None
+    if sc2 is not None:
+        with _stage("select"):
+            if distro is None:
+                distro = torch.tensor(DEFAULT_DISTRO, dtype=torch.float32,
+                                      device=reads1.device)
+            k1, k2 = _device_pair_select(sc1, sc2, distro)
     out = []
     for sc, reads, lengths, kk, other in (
         (sc1, reads1, lengths1, k1, (sc2, k2)),
@@ -540,13 +617,17 @@ def fused_align_step(fm: FMIndex, reads1, lengths1, reads2=None,
         if sc is None:
             out.append(None)
             continue
-        arp, aqp, ast, sub, sub_n, xa_mask = _device_choose(sc, lengths, kk)
-        cand = extend_candidates(fm, reads, lengths, arp, aqp, ast,
-                                 params=params)
-        if other[0] is not None:
-            cand = _mate_rescue(fm, cand, sc, other[0], other[1], reads,
-                                lengths, distro, params)
-        xa = _extend_xa(fm, sc, xa_mask, reads, lengths, params)
+        with _stage("select"):
+            arp, aqp, ast, sub, sub_n, xa_mask = _device_choose(sc, lengths,
+                                                                kk)
+        with _stage("extend"):
+            cand = extend_candidates(fm, reads, lengths, arp, aqp, ast,
+                                     params=params)
+        with _stage("rescue_xa"):
+            if other[0] is not None:
+                cand = _mate_rescue(fm, cand, sc, other[0], other[1], reads,
+                                    lengths, distro, params)
+            xa = _extend_xa(fm, sc, xa_mask, reads, lengths, params)
         out.append((cand, sub, sub_n, sc, xa))
     return tuple(out)
 
@@ -565,48 +646,52 @@ def fused_align_packed(fm: FMIndex, reads1, lengths1, reads2=None,
     speedseq_tpu.align.core.fused_align_packed."""
     res = fused_align_step(fm, reads1, lengths1, reads2, lengths2,
                            distro=distro, **kw)
-    dev = reads1.device
-    metas, cigars, stats, xa_metas, xa_cigs = [], [], [], [], []
-    max_nops = torch.zeros((), dtype=i32, device=dev)
-    pk = lambda hi, lo: (hi.to(i32) << 16) | (lo.to(i32) & 0xFFFF)
-    for end in res:
-        if end is None:
-            continue
-        cand, sub, sub_n, sc, xa = end
-        B, S = cand.pos.shape
-        sub_b = sub[:, None].expand(B, S)
-        sub_n_b = sub_n[:, None].expand(B, S)
-        metas.append(torch.stack([
-            cand.pos.to(i32), cand.rend_pos.to(i32), cand.rstart.to(i32),
-            pk(cand.strand, cand.score),
-            pk(cand.qbeg, cand.qend),
-            pk(cand.n_ops, cand.nm),
-            pk(sub_b, sub_n_b),
-        ]))
-        M = cand.cigar_ops.shape[-1]
-        valid = (torch.arange(M, device=dev)[None, None, :]
-                 < cand.n_ops[..., None])
-        cigars.append(torch.where(
-            valid, (cand.cigar_len << 4) | cand.cigar_ops, 0).to(torch.int16))
-        max_nops = torch.maximum(max_nops, torch.where(
-            cand.score > 0, cand.n_ops, 0).amax().to(i32))
-        stats.append(torch.stack(
-            [sc.pos, sc.strand, sc.score, sc.rend_pos]).to(i32))
-        xa_metas.append(torch.stack([
-            xa.read_idx, xa.pos, xa.strand, xa.score, xa.qbeg, xa.qend,
-            xa.rend_pos, xa.n_ops, xa.nm,
-        ]).to(i32))
-        xv = torch.arange(M, device=dev)[None, :] < xa.n_ops[:, None]
-        xa_cigs.append(torch.where(
-            xv, (xa.cigar_len << 4) | xa.cigar_ops, 0
-        ).to(torch.int16)[:, :CIGAR_HEAD])
-    cigar_full = torch.stack(cigars)
-    overflow = (max_nops > CIGAR_HEAD).to(i32)
-    xa_meta = torch.stack(xa_metas)
-    xa_ok = xa_meta[:, 7] <= CIGAR_HEAD          # n_ops row
-    xa_meta[:, 0] = torch.where(xa_ok, xa_meta[:, 0], -1)
-    return (torch.stack(metas), cigar_full[..., :CIGAR_HEAD], cigar_full,
-            overflow, torch.stack(stats), xa_meta, torch.stack(xa_cigs))
+    with _stage("pack"):
+        dev = reads1.device
+        metas, cigars, stats, xa_metas, xa_cigs = [], [], [], [], []
+        max_nops = torch.zeros((), dtype=i32, device=dev)
+        pk = lambda hi, lo: (hi.to(i32) << 16) | (lo.to(i32) & 0xFFFF)
+        for end in res:
+            if end is None:
+                continue
+            cand, sub, sub_n, sc, xa = end
+            B, S = cand.pos.shape
+            sub_b = sub[:, None].expand(B, S)
+            sub_n_b = sub_n[:, None].expand(B, S)
+            metas.append(torch.stack([
+                cand.pos.to(i32), cand.rend_pos.to(i32),
+                cand.rstart.to(i32),
+                pk(cand.strand, cand.score),
+                pk(cand.qbeg, cand.qend),
+                pk(cand.n_ops, cand.nm),
+                pk(sub_b, sub_n_b),
+            ]))
+            M = cand.cigar_ops.shape[-1]
+            valid = (torch.arange(M, device=dev)[None, None, :]
+                     < cand.n_ops[..., None])
+            cigars.append(torch.where(
+                valid, (cand.cigar_len << 4) | cand.cigar_ops,
+                0).to(torch.int16))
+            max_nops = torch.maximum(max_nops, torch.where(
+                cand.score > 0, cand.n_ops, 0).amax().to(i32))
+            stats.append(torch.stack(
+                [sc.pos, sc.strand, sc.score, sc.rend_pos]).to(i32))
+            xa_metas.append(torch.stack([
+                xa.read_idx, xa.pos, xa.strand, xa.score, xa.qbeg, xa.qend,
+                xa.rend_pos, xa.n_ops, xa.nm,
+            ]).to(i32))
+            xv = torch.arange(M, device=dev)[None, :] < xa.n_ops[:, None]
+            xa_cigs.append(torch.where(
+                xv, (xa.cigar_len << 4) | xa.cigar_ops, 0
+            ).to(torch.int16)[:, :CIGAR_HEAD])
+        cigar_full = torch.stack(cigars)
+        overflow = (max_nops > CIGAR_HEAD).to(i32)
+        xa_meta = torch.stack(xa_metas)
+        xa_ok = xa_meta[:, 7] <= CIGAR_HEAD          # n_ops row
+        xa_meta[:, 0] = torch.where(xa_ok, xa_meta[:, 0], -1)
+        return (torch.stack(metas), cigar_full[..., :CIGAR_HEAD],
+                cigar_full, overflow, torch.stack(stats), xa_meta,
+                torch.stack(xa_cigs))
 
 
 def fused_align_leaves(fm: FMIndex, reads1, lengths1, reads2=None,
@@ -616,7 +701,8 @@ def fused_align_leaves(fm: FMIndex, reads1, lengths1, reads2=None,
     ([cigar16 | xa_cig]); the full cigar and the stats stay separate."""
     meta, cig16, cigfull, ovf, stats, xam, xac = fused_align_packed(
         fm, reads1, lengths1, reads2, lengths2, distro=distro, **kw)
-    return pack_leaves(meta, cig16, ovf, xam, xac) + (cigfull, stats)
+    with _stage("pack"):
+        return pack_leaves(meta, cig16, ovf, xam, xac) + (cigfull, stats)
 
 
 def pack_leaves(meta, cig16, ovf, xam, xac):

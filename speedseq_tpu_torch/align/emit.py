@@ -28,6 +28,7 @@ from ..formats.sam import (
     FDUP, FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR, FREAD1, FREAD2,
     FREVERSE, FSUPPLEMENTARY, FUNMAP,
 )
+from ..utils.metrics import metrics
 from .core import mapq_vec
 
 _ABSENT = np.int32(-2**31)  # shared sentinel with native.build_aux
@@ -542,9 +543,10 @@ def build_batch_records(
         proper = (both & same_tid & (e1.strand[:, 0] != e2.strand[:, 0])
                   & fwd_first & (isize >= distro.low) & (isize <= distro.high))
         discordant = both & ~proper
-        dup = marker.mark_batch(
-            e1.tid[:, 0], e1.p5, e1.strand[:, 0], e1.aligned,
-            e2.tid[:, 0], e2.p5, e2.strand[:, 0], e2.aligned, lib=lib)
+        with metrics.timer("align.emit.markdup"):
+            dup = marker.mark_batch(
+                e1.tid[:, 0], e1.p5, e1.strand[:, 0], e1.aligned,
+                e2.tid[:, 0], e2.p5, e2.strand[:, 0], e2.aligned, lib=lib)
         dup &= e1.aligned | e2.aligned
     else:
         e1 = es[0]
@@ -552,9 +554,10 @@ def build_batch_records(
         proper = np.zeros(n, bool)
         discordant = np.zeros(n, bool)
         none = np.full(n, -1, np.int64)
-        dup = marker.mark_batch(
-            e1.tid[:, 0], e1.p5, e1.strand[:, 0], e1.aligned,
-            none, none, none, np.zeros(n, bool), lib=lib)
+        with metrics.timer("align.emit.markdup"):
+            dup = marker.mark_batch(
+                e1.tid[:, 0], e1.p5, e1.strand[:, 0], e1.aligned,
+                none, none, none, np.zeros(n, bool), lib=lib)
         dup &= e1.aligned
 
     all_rows = np.arange(n, dtype=np.int64)
@@ -829,28 +832,30 @@ def build_batch_records(
     # ---- assemble the three streams ------------------------------------
     main = RecordColumns.concat(prim_sections + supp_sections)
 
-    dup_ok_masks = [
-        (~d) | cfg.include_dups_in_side for d in prim_dup_masks
-    ]
-    split_gate = cfg.max_split_count >= 2
-    # splitters: primary rows with a split + all supp rows (dup-gated)
-    spl_parts = []
-    if split_gate:
-        for sec, hs, dok in zip(prim_sections, prim_split_masks, dup_ok_masks):
-            rows = np.nonzero(hs & dok)[0]
-            if len(rows):
-                spl_parts.append(sec.subset(rows, strip_seq=True))
-        for sec, d in zip(supp_sections, supp_dup_masks):
-            rows = np.nonzero((~d) | cfg.include_dups_in_side)[0]
-            if len(rows):
-                spl_parts.append(sec.subset(rows, strip_seq=True))
-    splitters = RecordColumns.concat(spl_parts)
+    with metrics.timer("align.emit.side"):
+        dup_ok_masks = [
+            (~d) | cfg.include_dups_in_side for d in prim_dup_masks
+        ]
+        split_gate = cfg.max_split_count >= 2
+        # splitters: primary rows with a split + all supp rows (dup-gated)
+        spl_parts = []
+        if split_gate:
+            for sec, hs, dok in zip(prim_sections, prim_split_masks,
+                                    dup_ok_masks):
+                rows = np.nonzero(hs & dok)[0]
+                if len(rows):
+                    spl_parts.append(sec.subset(rows, strip_seq=True))
+            for sec, d in zip(supp_sections, supp_dup_masks):
+                rows = np.nonzero((~d) | cfg.include_dups_in_side)[0]
+                if len(rows):
+                    spl_parts.append(sec.subset(rows, strip_seq=True))
+        splitters = RecordColumns.concat(spl_parts)
 
-    disc_parts = []
-    for sec, dm, dok in zip(prim_sections, prim_disc_masks, dup_ok_masks):
-        rows = np.nonzero(dm & dok)[0]
-        if len(rows):
-            disc_parts.append(sec.subset(rows, strip_seq=True))
-    discordants = RecordColumns.concat(disc_parts)
+        disc_parts = []
+        for sec, dm, dok in zip(prim_sections, prim_disc_masks, dup_ok_masks):
+            rows = np.nonzero(dm & dok)[0]
+            if len(rows):
+                disc_parts.append(sec.subset(rows, strip_seq=True))
+        discordants = RecordColumns.concat(disc_parts)
 
     return {"bam": main, "splitters": splitters, "discordants": discordants}

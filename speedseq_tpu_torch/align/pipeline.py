@@ -12,17 +12,27 @@ Three stages overlap: the main thread dispatches batch i+1's device step
 i's CUDA event (its device-to-host copy into pinned host memory) and a
 1-thread drain pool runs the ordered host epilogue.
 
+The main thread's time is split into spans (``utils/metrics.py``):
+``align.index_load`` (``.read``, ``.kmer``, ``.to_device``),
+``align.input_wait`` (blocked on the FASTQ prefetch), ``align.dispatch``
+(the step's launches; inside it the stages ``align.stage.<s>``),
+``align.drain_wait`` (blocked on the epilogue's look-ahead) and
+``align.close`` (the sorters' merge, BGZF writes and BAIs after the last
+batch).  On cuda each step's stream span is ``align.device_step_s`` and
+each stage's ``align.stage.<s>.stream_s``, from CUDA events read once
+the batch's fetch has completed.
+
 With a mesh (``device=`` a parallel.mesh.Mesh, or on ``cuda`` when more
 than one card is visible and divides the batch), each batch's step runs
 sharded over the mesh (parallel.mesh.distributed_fused_step); the records
-do not change.  ``SSQ_TORCH_TRACE=<dir>`` records the whole run with
-``torch.profiler`` and writes a Chrome trace into ``<dir>``.
+do not change.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -45,7 +55,7 @@ from ..utils.metrics import metrics
 from ..utils.prefetch import prefetch
 from .core import (DEFAULT_DISTRO, HostAlignment, _orig_frame,
                    device_estimate_distro, fused_align_leaves, pack_leaves,
-                   unpack_fused, unpack_leaves, unpack_xa)
+                   stage_marks, unpack_fused, unpack_leaves, unpack_xa)
 from .markdup import (StreamDupMarker, make_sa_tag, split_qualifies,
                       strip_seq, unclipped_5p)
 from .pairing import InsertDistro, is_proper
@@ -138,22 +148,27 @@ def _load_fm(reference: str, device: torch.device, seed_mode: str = "hash"):
     mtime = os.stat(reference).st_mtime_ns
     hit = _host_cache.get(key)
     if hit is None or hit[0] != mtime:
-        if not os.path.exists(reference + ".bwt"):
-            idx = build_index(reference)
-        else:
-            idx = load_index(reference)
-        host = (_full_sa(reference, idx) if seed_mode == "fm"
-                else kmer_arrays_np(idx.pac))
+        with metrics.timer("align.index_load.read"):
+            if not os.path.exists(reference + ".bwt"):
+                idx = build_index(reference)
+            else:
+                idx = load_index(reference)
+            if seed_mode == "fm":
+                host = _full_sa(reference, idx)   # read from its disk cache
+        if seed_mode != "fm":
+            with metrics.timer("align.index_load.kmer"):
+                host = kmer_arrays_np(idx.pac)
         hit = (mtime, idx, host)
         _host_cache.clear()
         _host_cache[key] = hit
     _, idx, host = hit
-    if seed_mode == "fm":
-        return idx, FMIndex.from_bwa_fm(idx, host, device), None
-    starts, positions, fp, bits = host
-    kidx = kmer_index_from_arrays(starts, positions, fp, len(idx.pac),
-                                  19, bits, device)
-    return idx, FMIndex.from_bwa(idx, device), kidx
+    with metrics.timer("align.index_load.to_device"):
+        if seed_mode == "fm":
+            return idx, FMIndex.from_bwa_fm(idx, host, device), None
+        starts, positions, fp, bits = host
+        kidx = kmer_index_from_arrays(starts, positions, fp, len(idx.pac),
+                                      19, bits, device)
+        return idx, FMIndex.from_bwa(idx, device), kidx
 
 
 def align_fastq(
@@ -177,15 +192,23 @@ def align_fastq(
                         device=device)
 
 
-def _step_events(device: torch.device):
-    """A started (begin, end) CUDA event pair around one device step
-    (None off the card): its elapsed time is the step's device time."""
-    if device.type != "cuda":
-        return None
-    evs = (torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True))
-    evs[0].record()
-    return evs
+class _EventPool:
+    """Timing CUDA events for reuse across batches: a batch's events go
+    back once its drain has read them."""
+
+    def __init__(self):
+        self._free: List[torch.cuda.Event] = []
+        self._lock = threading.Lock()
+
+    def take(self) -> "torch.cuda.Event":
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+        return torch.cuda.Event(enable_timing=True)
+
+    def give(self, events) -> None:
+        with self._lock:
+            self._free.extend(events)
 
 
 def _fetch(tensors, device: torch.device):
@@ -206,6 +229,26 @@ def _fetch(tensors, device: torch.device):
         return [h.numpy() for h in host]
 
     return wait
+
+
+def _run_mesh(device, batch_size: int):
+    """(mesh or None, the run's device): the mesh given as ``device``
+    (its size must divide the batch), or on ``cuda`` (no card index)
+    every visible card when there are several and they divide the
+    batch."""
+    from ..parallel.mesh import Mesh, make_mesh
+
+    if isinstance(device, Mesh):
+        if batch_size % device.size:
+            raise ValueError(f"batch size {batch_size} is not a multiple "
+                             f"of the mesh size {device.size}")
+        return (device if device.size > 1 else None), device.devices[0]
+    dev = resolve_device(device)
+    n = torch.cuda.device_count()
+    if dev.type == "cuda" and dev.index is None and n > 1 \
+            and batch_size % n == 0:
+        return make_mesh(), dev
+    return None, dev
 
 
 def align_stream(
@@ -235,48 +278,6 @@ def align_stream(
     exchanges they make while closing pair up across processes.
     ``pre_close()`` runs after the last batch, before the sorters close
     (the multi-process dup marker pads its exchange waves there)."""
-    trace_dir = os.environ.get("SSQ_TORCH_TRACE")
-    if not trace_dir:
-        return _align_stream(reference, batch_iter, out_prefix, config,
-                             rg_lines, paired, marker, device,
-                             sorter_factory, pre_close)
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        out = _align_stream(reference, batch_iter, out_prefix, config,
-                            rg_lines, paired, marker, device,
-                            sorter_factory, pre_close)
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        trace_dir, f"align-{os.getpid()}-{int(time.time() * 1000)}.json"))
-    return out
-
-
-def _run_mesh(device, batch_size: int):
-    """(mesh or None, the run's device): the mesh given as ``device``
-    (its size must divide the batch), or on ``cuda`` (no card index)
-    every visible card when there are several and they divide the
-    batch."""
-    from ..parallel.mesh import Mesh, make_mesh
-
-    if isinstance(device, Mesh):
-        if batch_size % device.size:
-            raise ValueError(f"batch size {batch_size} is not a multiple "
-                             f"of the mesh size {device.size}")
-        return (device if device.size > 1 else None), device.devices[0]
-    dev = resolve_device(device)
-    n = torch.cuda.device_count()
-    if dev.type == "cuda" and dev.index is None and n > 1 \
-            and batch_size % n == 0:
-        return make_mesh(), dev
-    return None, dev
-
-
-def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
-                  paired, marker, device, sorter_factory, pre_close):
     t0 = time.time()
     cfg = config
     mesh, dev = _run_mesh(device, cfg.batch_size)
@@ -359,6 +360,9 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
             dtype=torch.float32, device=dev)
 
     fetch_pool = ThreadPoolExecutor(max_workers=1)
+    # the step's and its stages' stream marks (one card, no mesh)
+    events = (_EventPool() if mesh is None and dev.type == "cuda"
+              else None)
 
     def _drain(item) -> None:
         """Consume one dispatched batch: wait for its fetch, then run the
@@ -370,9 +374,13 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
         with metrics.timer("align.fetch_wait"):
             fetched = item["fut"].result()
         if item["step_ev"] is not None:
-            # both events completed before the fetch's own event
+            # every mark completed before the fetch's own event
             ev0, ev1 = item["step_ev"]
             metrics.add("align.device_step_s", ev0.elapsed_time(ev1) / 1e3)
+            marks = item["marks"]
+            for st, sec in marks.seconds().items():
+                metrics.add(f"align.stage.{st}.stream_s", sec)
+            events.give(item["step_ev"] + tuple(marks.events))
         meta_h, xam_h, ovf_h, cig, xac_h = unpack_leaves(
             fetched[0], fetched[1])
         if ovf_h:
@@ -415,7 +423,8 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
     drain_pool = ThreadPoolExecutor(max_workers=1)
     drain_futs: "deque" = deque()
     try:
-        for bi, (b1, b2) in enumerate(prefetch(batch_iter)):
+        for bi, (b1, b2) in enumerate(metrics.timed(
+                prefetch(batch_iter), "align.input_wait")):
             if bi < done_batches:
                 continue
             batches = [b1] + ([b2] if b2 is not None else [])
@@ -434,7 +443,10 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
                     is_paired_batch and cfg.insert_override is None
                     and bi % cfg.distro_update_every == 0
                 )
-                step_ev = None if mesh is not None else _step_events(dev)
+                step_ev = marks = None
+                if events is not None:
+                    step_ev = (events.take(), events.take())
+                    step_ev[0].record()
                 step_args = (seqs[0], lens[0],
                              seqs[1] if is_paired_batch else None,
                              lens[1] if is_paired_batch else None)
@@ -451,8 +463,12 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
                     i32_d, i16_d = pack_leaves(meta_d, cig16_d, ovf_d,
                                                xam_d, xac_d)
                 else:
-                    i32_d, i16_d, cigfull_d, stats_d = fused_align_leaves(
-                        fm, *step_args, paired=is_paired_batch, **step_kw)
+                    take = events.take if events is not None else None
+                    with stage_marks(take) as marks:
+                        i32_d, i16_d, cigfull_d, stats_d = \
+                            fused_align_leaves(fm, *step_args,
+                                               paired=is_paired_batch,
+                                               **step_kw)
                 if step_ev is not None:
                     step_ev[1].record()
                 if est_distro:
@@ -468,14 +484,17 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
             item = {
                 "bi": bi, "batches": batches, "est_distro": est_distro,
                 "cigfull": cigfull_d, "fut": fetch_pool.submit(wait),
-                "step_ev": step_ev,
+                "step_ev": step_ev, "marks": marks,
             }
             drain_futs.append(drain_pool.submit(_drain, item))
             # bounded look-ahead: at most 2 batches of fetched arrays live
-            while len(drain_futs) > 2:
+            if len(drain_futs) > 2:
+                with metrics.timer("align.drain_wait"):
+                    while len(drain_futs) > 2:
+                        drain_futs.popleft().result()
+        with metrics.timer("align.drain_wait"):
+            while drain_futs:
                 drain_futs.popleft().result()
-        while drain_futs:
-            drain_futs.popleft().result()
     finally:
         # on an interrupting exception, still wait for already-submitted
         # drains (their checkpoint segments must land deterministically)
@@ -488,9 +507,6 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
         drain_pool.shutdown(wait=True)
         fetch_pool.shutdown(wait=True)
 
-    if os.path.exists(ckpt_path):
-        os.remove(ckpt_path)
-
     # finalize the 3 outputs concurrently (sorter merge + BGZF write + BAI
     # build each), as the reference co-schedules with `parallel -j 3`
     def _close_one(key_suffix):
@@ -501,18 +517,21 @@ def _align_stream(reference, batch_iter, out_prefix, config, rg_lines,
             bai.build_bai(path)
         return suffix[1:], path
 
-    if pre_close is not None:
-        # the multi-process dup marker pads its exchange waves before any
-        # sorter closes: a process's close-time exchanges must not pair
-        # with a peer still waiting in a marker wave
-        pre_close()
-    if sorter_factory is not None:
-        # one after another, in stream order: factory sorters may make
-        # exchanges while closing
-        outputs = dict(map(_close_one, _OUTPUTS))
-    else:
-        with ThreadPoolExecutor(max_workers=3) as close_pool:
-            outputs = dict(close_pool.map(_close_one, _OUTPUTS))
+    with metrics.timer("align.close"):
+        if os.path.exists(ckpt_path):
+            os.remove(ckpt_path)
+        if pre_close is not None:
+            # the multi-process dup marker pads its exchange waves before
+            # any sorter closes: a process's close-time exchanges must not
+            # pair with a peer still waiting in a marker wave
+            pre_close()
+        if sorter_factory is not None:
+            # one after another, in stream order: factory sorters may
+            # make exchanges while closing
+            outputs = dict(map(_close_one, _OUTPUTS))
+        else:
+            with ThreadPoolExecutor(max_workers=3) as close_pool:
+                outputs = dict(close_pool.map(_close_one, _OUTPUTS))
     if cfg.verbose:
         dt = time.time() - t0
         print(f"[align] {n_reads} reads in {dt:.1f}s "

@@ -204,21 +204,10 @@ def realign(
     # marking scope (bin/speedseq:1930-1973); our dup signatures already
     # key per pair and all libraries share the aligner, so one stream
     # suffices — per-library RG retention flows through the RG: comments
-    batches = _timed(iter_bam_pairs(
+    batches = metrics.timed(iter_bam_pairs(
         bam_paths, None, cfg.batch_size, cfg.max_read_len, rename=rename
     ), "realign.extract")
     return align_stream(
         reference, batches, out_prefix, cfg, rg_lines=rg_lines, paired=True,
         device=device,
     )
-
-
-def _timed(it: Iterator, name: str) -> Iterator:
-    """``it``, with the time spent producing each item added to timer
-    ``name`` (the consumer's time between items is not counted)."""
-    while True:
-        with metrics.timer(name):
-            item = next(it, None)
-        if item is None:
-            return
-        yield item

@@ -353,8 +353,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """Run one subcommand.  ``SSQ_TORCH_TRACE=<dir>`` records it with
+    ``torch.profiler`` (the device too, on a card) and writes a Chrome
+    trace ``<dir>/<subcommand>-<pid>-<ms>.json``, the program's spans
+    (``ssq.<name>``) among its events."""
     args = build_parser().parse_args(argv)
-    return args.func(args)
+    trace_dir = os.environ.get("SSQ_TORCH_TRACE")
+    if not trace_dir:
+        return args.func(args)
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        rc = args.func(args)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir,
+        f"{args.command}-{os.getpid()}-{int(time.time() * 1000)}.json"))
+    return rc
 
 
 if __name__ == "__main__":

@@ -41,41 +41,3 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
             return
         yield item
 
-
-class StageTimer:
-    """Per-stage wall-clock + throughput counters (the observability the
-    reference lacks, SURVEY.md §5: stage banners only)."""
-
-    def __init__(self):
-        import time
-
-        self._time = time.perf_counter
-        self.totals = {}
-        self.counts = {}
-
-    def add(self, stage: str, seconds: float, items: int = 0):
-        self.totals[stage] = self.totals.get(stage, 0.0) + seconds
-        self.counts[stage] = self.counts.get(stage, 0) + items
-
-    class _Ctx:
-        def __init__(self, timer, stage, items):
-            self.timer, self.stage, self.items = timer, stage, items
-
-        def __enter__(self):
-            self.t0 = self.timer._time()
-            return self
-
-        def __exit__(self, *exc):
-            self.timer.add(self.stage, self.timer._time() - self.t0, self.items)
-
-    def stage(self, name: str, items: int = 0) -> "_Ctx":
-        return self._Ctx(self, name, items)
-
-    def report(self) -> str:
-        lines = []
-        for k in sorted(self.totals):
-            dt = self.totals[k]
-            n = self.counts[k]
-            rate = f" ({n / dt:.0f}/s)" if n and dt > 0 else ""
-            lines.append(f"  {k}: {dt:.2f}s n={n}{rate}")
-        return "\n".join(lines)

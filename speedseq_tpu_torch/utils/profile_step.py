@@ -7,16 +7,16 @@ Builds the synthetic ~6 Mbp genome of chip_smoke.py, simulates one batch of
 (core.fused_align_leaves) on cuda.  Prints JSON lines:
 
   step      the step's time by CUDA events (mean of 3 warm steps)
-  stages    each stage's inclusive time with a device synchronise around
-            every stage call (seeding, chaining, pair selection, slot
-            choice, extension, rescue, XA, the two kernels)
+  stages    the program's own spans of the step's five stages
+            (core.stage_marks; ``align.stage.<s>`` in utils/metrics.py)
+            over one step: each stage's stream time between its CUDA
+            events, its host wall time and its thread CPU time
   profile   torch.profiler over one step: device kernel time summed, the
             step's wall time under the profiler, the device's idle share
             (against that wall and against the unprofiled step time), the
             top kernels by time
 
-Stage wrappers are installed by this script only; the package carries no
-instrumentation.  Needs a CUDA device.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,40 +37,6 @@ PAIRS = 8_192                      # chip_smoke.py's align batch
 TOP = 15                           # kernels listed by time
 
 
-def _stage_wrappers(timings, counts):
-    """Wrap the step's stages so each call is bracketed by a synchronise
-    and timed on the host clock (inclusive of nested stages)."""
-    from ..align import core, chain
-    from ..index import kmer
-    from ..ops import sw_banded
-
-    targets = [
-        (kmer, "find_seeds_hash", core), (chain, "chain_seeds_nms", core),
-        (core, "weight_candidates", None), (core, "_device_pair_select", None),
-        (core, "_device_choose", None), (core, "extend_candidates", None),
-        (core, "_mate_rescue", None), (core, "_extend_xa", None),
-        (sw_banded, "sw_cigar", None), (sw_banded, "sw_score", None),
-    ]
-    saved = []
-    for mod, name, also in targets:
-        fn = getattr(mod, name)
-
-        def wrapped(*a, _fn=fn, _name=name, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            timings[_name] += time.perf_counter() - t0
-            counts[_name] += 1
-            return out
-
-        for m in (mod, also):
-            if m is not None and hasattr(m, name):
-                saved.append((m, name, getattr(m, name)))
-                setattr(m, name, wrapped)
-    return saved
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -82,6 +48,7 @@ def main() -> int:
     from ..align.pipeline import _load_fm
     from ..device import resolve_device
     from . import synth
+    from .metrics import metrics
 
     dev = resolve_device("cuda")
     root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -125,22 +92,21 @@ def main() -> int:
                       "reads_per_s": 2 * PAIRS / step_ms * 1e3}),
           flush=True)
 
-    timings, counts = defaultdict(float), defaultdict(int)
-    saved = _stage_wrappers(timings, counts)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    before = metrics.snapshot()
+    with core.stage_marks(
+            lambda: torch.cuda.Event(enable_timing=True)) as marks:
         step()
-        torch.cuda.synchronize()
-        synced_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for m, name, fn in reversed(saved):
-            setattr(m, name, fn)
+    torch.cuda.synchronize()
+    after = metrics.snapshot()
+    spent = lambda kind: {
+        k[len(kind) + len("align.stage."):]: (v - before.get(k, 0.0)) * 1e3
+        for k, v in after.items() if k.startswith(kind + "align.stage.")}
+    stream = marks.seconds()
     print(json.dumps({
-        "phase": "stages", "step_ms_synchronised": synced_ms,
-        "inclusive_ms": {k: v * 1e3 for k, v in sorted(
-            timings.items(), key=lambda kv: -kv[1])},
-        "calls": dict(counts)}), flush=True)
+        "phase": "stages",
+        "stream_ms": {k: v * 1e3 for k, v in stream.items()},
+        "stream_ms_total": sum(stream.values()) * 1e3,
+        "host_ms": spent("time."), "cpu_ms": spent("cpu.")}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -722,50 +722,64 @@ def _build_loci(
     sample_of_read: np.ndarray, device: torch.device,
 ) -> List[_Locus]:
     ref_codes = genome[p.start : p.end]
-    atoms = _collect_atoms(genome, p, n_samples, cfg, sample_of_read)
+    with metrics.timer("var.loci.atoms"):
+        atoms = _collect_atoms(genome, p, n_samples, cfg, sample_of_read)
+    metrics.add("var.atoms", len(atoms))
     loci: List[_Locus] = []
     hap_groups: List[List[dict]] = []
+    made = {"snv": 0, "indel": 0, "hap": 0}   # loci by kind
     for group in _group_atoms(atoms, cfg.haplotype_gap):
         snp_offs = {a["off"] for a in group if a["kind"] == "snp"}
         only_snps = all(a["kind"] == "snp" for a in group)
         if only_snps and len(snp_offs) == 1:
             loci.append(_build_simple_snv_locus(group, ref_codes, p, cfg))
+            made["snv"] += 1
             continue
         if len(group) == 1 and group[0]["kind"] == "indel":
             loci.append(_build_indel_locus(group[0], p, cfg))
+            made["indel"] += 1
             continue
         hap_groups.append(group)
 
     if hap_groups:
-        # two-pass: enumerate candidates per group, then ONE batched SW
-        # kernel call over every (read, candidate) lane of the window
-        jobs = []
-        job_of_group: List[Optional[_HapJob]] = []
-        for group in hap_groups:
-            job = _hap_group_job(group, ref_codes, p, cfg)
-            job_of_group.append(job)
-            if job is not None:
-                jobs.append(job)
-        if jobs:
-            _score_hap_jobs(jobs, p, genome, device)
-        for group, job in zip(hap_groups, job_of_group):
-            res = None
-            if job is not None:
-                res = _finish_hap_locus(
-                    job, ref_codes, p, n_samples, cfg, sample_of_read)
-            if res:
-                loci.extend(res)
-                continue
-            # fallback: evaluate atoms independently (no joint allele
-            # supported by the DP votes)
-            by_off: Dict[int, List[dict]] = {}
-            for a in group:
-                if a["kind"] == "snp":
-                    by_off.setdefault(a["off"], []).append(a)
-                else:
-                    loci.append(_build_indel_locus(a, p, cfg))
-            for off, snps in sorted(by_off.items()):
-                loci.append(_build_simple_snv_locus(snps, ref_codes, p, cfg))
+        with metrics.timer("var.loci.hap"):
+            # two-pass: enumerate candidates per group, then ONE batched SW
+            # kernel call over every (read, candidate) lane of the window
+            jobs = []
+            job_of_group: List[Optional[_HapJob]] = []
+            for group in hap_groups:
+                job = _hap_group_job(group, ref_codes, p, cfg)
+                job_of_group.append(job)
+                if job is not None:
+                    jobs.append(job)
+            metrics.add("var.hap_groups", len(hap_groups))
+            metrics.add("var.hap_cands", sum(len(j.cands) for j in jobs))
+            if jobs:
+                _score_hap_jobs(jobs, p, genome, device)
+            for group, job in zip(hap_groups, job_of_group):
+                res = None
+                if job is not None:
+                    res = _finish_hap_locus(
+                        job, ref_codes, p, n_samples, cfg, sample_of_read)
+                if res:
+                    loci.extend(res)
+                    made["hap"] += len(res)
+                    continue
+                # fallback: evaluate atoms independently (no joint allele
+                # supported by the DP votes)
+                by_off: Dict[int, List[dict]] = {}
+                for a in group:
+                    if a["kind"] == "snp":
+                        by_off.setdefault(a["off"], []).append(a)
+                    else:
+                        loci.append(_build_indel_locus(a, p, cfg))
+                        made["indel"] += 1
+                for off, snps in sorted(by_off.items()):
+                    loci.append(_build_simple_snv_locus(snps, ref_codes, p,
+                                                        cfg))
+                    made["snv"] += 1
+    for kind, k in made.items():
+        metrics.add(f"var.loci.{kind}", k)
     loci.sort(key=lambda l: l.offset)
     return loci
 
@@ -813,18 +827,18 @@ def prepare_window(
                        resolve_device(device))
     if not loci:
         return None
-    strand_of_read = np.asarray(p.strand, np.int8)
-    rlen_half = np.where(p.read_len > 0, p.read_len / 2.0, 50.0)
-    obs = np.stack([l.obs for l in loci])                  # (S, R)
-    quals = np.stack([l.quals for l in loci]).astype(np.float32)
-    n_alts = np.array([len(l.alts) for l in loci], np.int32)
-    rpos = np.stack([p.col(l.anchor)[2] for l in loci])    # (S, R)
-
     from .device import compact_site_reads
 
-    c_obs, c_quals, c_sam, c_rpos, c_str, c_rl = compact_site_reads(
-        obs, quals, sample_of_read, rpos, strand_of_read,
-        rlen_half.astype(np.float32))
+    with metrics.timer("var.loci.compact"):
+        strand_of_read = np.asarray(p.strand, np.int8)
+        rlen_half = np.where(p.read_len > 0, p.read_len / 2.0, 50.0)
+        obs = np.stack([l.obs for l in loci])                  # (S, R)
+        quals = np.stack([l.quals for l in loci]).astype(np.float32)
+        n_alts = np.array([len(l.alts) for l in loci], np.int32)
+        rpos = np.stack([p.col(l.anchor)[2] for l in loci])    # (S, R)
+        c_obs, c_quals, c_sam, c_rpos, c_str, c_rl = compact_site_reads(
+            obs, quals, sample_of_read, rpos, strand_of_read,
+            rlen_half.astype(np.float32))
     return PreparedWindow(
         loci=loci, obs=c_obs, quals=c_quals, sample=c_sam, rpos=c_rpos,
         strand=c_str, rlen_half=c_rl, n_alts=n_alts)

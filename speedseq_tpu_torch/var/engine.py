@@ -297,20 +297,25 @@ def run_var(
         if use_columnar:
             parts, sids = [], []
             for bi, rd in enumerate(_readers()):
-                blob = _fetch_window_raw(rd, indexes[bi], tid, w.start, w.end)
+                with metrics.timer("var.fetch"):
+                    blob = _fetch_window_raw(rd, indexes[bi], tid, w.start,
+                                             w.end)
                 if not blob:
                     continue
-                c = _native.bam_decode(blob)
-                parts.append(c)
-                sids.append(_columnar_sample_ids(c, bi, rg_map, default_map))
+                metrics.add("var.fetch_bytes", len(blob))
+                with metrics.timer("var.decode"):
+                    c = _native.bam_decode(blob)
+                    parts.append(c)
+                    sids.append(_columnar_sample_ids(c, bi, rg_map,
+                                                     default_map))
             if not parts:
                 return None
-            return build_pileup_columns(
-                _concat_cols(parts), np.concatenate(sids), w.start, w.end,
-                min_mapq=cfg.caller.min_mapq,
-                min_baseq=cfg.caller.min_baseq,
-                tid=tid,
-            )
+            with metrics.timer("var.columns"):
+                return build_pileup_columns(
+                    _concat_cols(parts), np.concatenate(sids), w.start,
+                    w.end, min_mapq=cfg.caller.min_mapq,
+                    min_baseq=cfg.caller.min_baseq, tid=tid,
+                )
         else:
             recs = []
             for bi, rd in enumerate(_readers()):
@@ -417,6 +422,8 @@ def run_var(
         for rds in all_readers:
             for rd in rds:
                 rd.close()
+    if cfg.verbose:
+        print(metrics.report(prefix="[var] "))
 
     # deterministic merge: coordinate sort, window order as tiebreak
     # (bin/speedseq:800-806)

@@ -1206,3 +1206,89 @@ def test_processes_one_per_card(mesh_world):
         hs, rs = read_bam(single[k])
         hm, rm = read_bam(multi[k])
         assert hs.text == hm.text and rs == rm, k
+
+
+# ------------------------------------------------- the device step's spans
+
+STAGES = ("seed_chain", "select", "extend", "rescue_xa", "pack")
+
+
+@pytest.fixture(scope="module")
+def stage_world(tmp_path_factory):
+    from speedseq_tpu_torch.utils import synth
+
+    d = tmp_path_factory.mktemp("gstage")
+    g = synth.make_genome((200_000, 150_000, 100_000), seed=51, n_del=6)
+    fa = str(d / "g.fa")
+    synth.write_fasta(fa, g)
+    rd = synth.simulate(g, 65_536, read_len=150, seed=53, kill_frac=0.01)
+    synth.write_fastq_pair(str(d / "1.fq"), str(d / "2.fq"), rd)
+    return d, fa, rd
+
+
+def test_stage_stream_spans_tile_the_step(stage_world):
+    """A 65,536-pair align on cuda: the five stages' stream spans
+    (``align.stage.<s>.stream_s``) sum to the step's stream span
+    (``align.device_step_s``) within 3 %, each stage read."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import align_fastq
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    d, fa, _ = stage_world
+    metrics.reset()
+    align_fastq(fa, str(d / "1.fq"), str(d / "2.fq"),
+                out_prefix=str(d / "o"), device="cuda")
+    snap = metrics.snapshot()
+    step = snap["align.device_step_s"]
+    stages = [snap[f"align.stage.{s}.stream_s"] for s in STAGES]
+    assert all(v > 0 for v in stages), stages
+    assert abs(sum(stages) - step) <= 0.03 * step, (sum(stages), step)
+
+
+def test_every_launch_of_a_step_lies_in_one_stage_span(stage_world):
+    """One traced step of 512 pairs under stage marks: every kernel
+    launch, copy and set the host sends lies inside exactly one
+    ``ssq.align.stage.<s>`` span, each stage records its marks, and no
+    ``ssq.`` span reaches the device's timeline."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speedseq_tpu_torch.align import core
+    from speedseq_tpu_torch.align.pipeline import _load_fm
+
+    _, fa, rd = stage_world
+    dev = torch.device("cuda")
+    _, fm, kidx = _load_fm(fa, dev)
+    B = 512
+    pad = lambda s: torch.from_numpy(np.pad(
+        s[:B], ((0, 0), (0, 1)), constant_values=4)).to(dev)
+    ln = torch.full((B,), 150, dtype=torch.int32, device=dev)
+    args = (pad(rd.seq1), ln, pad(rd.seq2), ln)
+    take = lambda: torch.cuda.Event(enable_timing=True)
+    core.fused_align_leaves(fm, *args, kidx=kidx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with core.stage_marks(take) as marks:
+            core.fused_align_leaves(fm, *args, kidx=kidx)
+        torch.cuda.synchronize()
+    assert set(marks.seconds()) == set(STAGES)
+    spans, calls = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        a = e.start_ns()
+        iv = (a, a + e.duration_ns(), name)
+        if name.startswith("ssq."):
+            assert e.device_type() == DeviceType.CPU, name
+            if name.startswith("ssq.align.stage."):
+                spans.append(iv)
+        elif e.device_type() == DeviceType.CPU and (
+                "LaunchKernel" in name or name.startswith(
+                    ("cudaMemcpy", "cudaMemset"))):
+            calls.append(iv)
+    assert {s[2] for s in spans} == {f"ssq.align.stage.{s}" for s in STAGES}
+    assert len(calls) > 100
+    for a, b, name in calls:
+        inside = [s for s in spans if s[0] <= a and b <= s[1]]
+        assert len(inside) == 1, (name, a, b)

@@ -13,7 +13,7 @@ programs on the conftest's 8 virtual CPU devices:
     bit for bit, and the JAX sharded programs within the tolerances of
     ``tests/test_torch_var.py`` and ``tests/test_torch_sv.py``;
 (d) ``align_stream`` over 4 CPU shards writes the BAM triple of 1 shard;
-and ``SSQ_TORCH_TRACE`` writes a Chrome trace of an align run."""
+and ``SSQ_TORCH_TRACE`` writes a Chrome trace of a CLI align run."""
 
 import glob
 import gzip
@@ -317,12 +317,19 @@ def test_align_stream_over_four_shards(align_inputs, monkeypatch):
 
 def test_trace_hook_writes_a_chrome_trace(align_inputs, tmp_path,
                                           monkeypatch):
+    from speedseq_tpu_torch import cli
+
     d, fa = align_inputs
     monkeypatch.setenv("SSQ_TORCH_TRACE", str(tmp_path / "trace"))
-    out = _stream(d, fa, "traced", "cpu")
-    assert os.path.exists(out["bam"])
+    prefix = str(d / "traced")
+    assert cli.main(["align", "--device", "cpu", "--batch-size", "64", "-R",
+                     "@RG\\tID:1\\tSM:s", "-o", prefix, fa,
+                     str(d / "r1.fq"), str(d / "r2.fq")]) == 0
+    assert os.path.exists(prefix + ".bam")
     files = glob.glob(str(tmp_path / "trace" / "align-*.json"))
     assert len(files) == 1
     with open(files[0]) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert {"ssq.align.dispatch", "ssq.align.stage.extend"} <= names
