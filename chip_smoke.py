@@ -41,7 +41,7 @@ Phases, each printing one JSON line:
 
   device   the card (nvidia-smi name, power limit, max SM clock)
   build    nvcc build of the kernels from the checkout (one nvcc per source,
-           all five started together), with ptxas reports
+           all six started together), with ptxas reports
   kernels  each SW kernel against its plain PyTorch twin on the card at
            production shapes (bit-equal), with kernel (per wrapper call and
            the device's alone) / twin / bound times; sw_cigar also with its
@@ -49,6 +49,9 @@ Phases, each printing one JSON line:
            and 256 x 151 x 256) and the device memory one call allocates
   parity   2,048 pairs through align_fastq on cpu and on cuda: the BAM
            triples must be record-equal
+  kernels  (seed_chain) hash seeding and NMS chaining of both ends of the
+           align cell's batch (512 pairs x 151) in one launch against the
+           twin on the card (bit-equal): kernel / device / twin / bound ms
   kernels  (fm) the FM index of the align genome loaded with no SA cache
            (timed), then fm_smem against its twin (bit-equal) at 8,192
            reads x 19 anchors = 155,648 lanes and fm_sa_walk against its
@@ -69,7 +72,8 @@ Phases, each printing one JSON line:
            in-process cache cleared first, so the run loads the bwa index
            from disk and builds the k-mer index as a fresh CLI run does;
            reads/s with and without that load, device-step share, kernel
-           launch counts, record counts, accuracy vs truth; then the
+           launch counts (seed_chain once a step, every read through it),
+           record counts, accuracy vs truth; then the
            same pairs through ``align --seed-mode fm`` (SMEM seeding),
            reported and held to the same bars
   kernels  (align batch) sw_cigar on the inputs one batch of the align
@@ -1531,6 +1535,68 @@ def _same_triple(out_a, out_b, what):
     return counts
 
 
+SEED_CHAIN_PAIRS = 512               # the align cell's batch: 1,024 reads
+
+
+def phase_seed_chain(fasta, genome, args, clock_hz: float, n_sms: int):
+    """The seed_chain kernel against its twin on the card (bit-equal) at
+    the align cell's batch: both ends of 512 pairs x 151 in one launch, on
+    the hash index of the smoke's genome.  Kernel (a wrapper call and the
+    device alone), twin and bound ms."""
+    import numpy as np
+    import torch
+
+    from speedseq_tpu_torch.align.pipeline import _load_fm
+    from speedseq_tpu_torch.index.kmer import find_seeds_hash
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils import synth
+
+    _, _, kidx = _load_fm(fasta, torch.device("cuda"))
+    rd = synth.simulate(genome, SEED_CHAIN_PAIRS, read_len=150,
+                        seed=args.seed + 5, kill_frac=0.01)
+    pad = lambda s: torch.from_numpy(np.pad(
+        s, ((0, 0), (0, 1)), constant_values=4)).cuda()
+    ln = torch.full((SEED_CHAIN_PAIRS,), 150, dtype=torch.int32,
+                    device="cuda")
+    ends = [(pad(rd.seq1), ln), (pad(rd.seq2), ln)]
+    kern = lambda: sc.seed_chain(kidx, ends)
+    plain = lambda: [sc.seed_chain_plain(kidx, r, n) for r, n in ends]
+    before = sc.LAUNCHES["seed_chain"]
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    check(sc.LAUNCHES["seed_chain"] == before + 1, "seed_chain did not launch")
+    for (gc, gp, gr), (wc, wp, wr) in zip(got, want):
+        for a, b in zip(tuple(gc) + (gp, gr), tuple(wc) + (wp, wr)):
+            check(torch.equal(a, b), "seed_chain disagrees with its twin")
+    ms = cuda_ms(kern, reps=20)
+    device_ms = cuda_ms(kern, reps=20, queued=True)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    # the bound: the first round's live same-strand pair tests (a lower
+    # bound of all rounds') at OPS_PER_PAIR, or the bytes: reads, lengths
+    # and outputs once, 8 of bucket_start an anchor that seeds, 8 of
+    # position and fingerprint a live seed
+    int_ops = nbytes = 0
+    for r, n in ends:
+        s = find_seeds_hash(kidx, r, n)
+        live = s.valid.reshape(r.shape[0], 2, -1, 4)
+        per_strand = live.flatten(2).sum(-1).long()
+        int_ops += sc.OPS_PER_PAIR * int((per_strand ** 2).sum())
+        nbytes += (r.numel() + 4 * n.numel() + 37 * 4 * r.shape[0]
+                   + 8 * int(live.any(-1).sum()) + 8 * int(live.sum()))
+    bound = _ops_bound(int_ops, 0, nbytes, clock_hz, n_sms)
+    emit({"phase": "kernels", "kernel": "seed_chain",
+          "reads": 2 * SEED_CHAIN_PAIRS, "width": 151, "bit_equal": True,
+          "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, **bound})
+    return {"name": "seed_chain", "route": "cuda",
+            "source": "speedseq_tpu_torch/ops/csrc/seed_chain.cu",
+            "replaces": "speedseq_tpu/index/kmer.py:find_seeds_hash + "
+                        "speedseq_tpu/align/chain.py:chain_seeds_nms (jnp)",
+            "launches": 0, "max_abs_err": 0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None}
+
+
 def phase_parity(work, fasta, genome, args, seed_mode="hash"):
     """2,048 pairs through align_fastq on cpu and on cuda: record-equal.
     With seed_mode "fm" a third run on cuda takes an index without the
@@ -1611,7 +1677,7 @@ def phase_align(work, fasta, genome, args, seed_mode="hash"):
     from speedseq_tpu_torch.align import pipeline
     from speedseq_tpu_torch.formats.sam import (
         FSECONDARY, FSUPPLEMENTARY, FUNMAP, FREAD1)
-    from speedseq_tpu_torch.ops import fm_search, sw_banded
+    from speedseq_tpu_torch.ops import fm_search, seed_chain, sw_banded
     from speedseq_tpu_torch.utils import synth
     from speedseq_tpu_torch.utils.metrics import metrics
 
@@ -1630,6 +1696,7 @@ def phase_align(work, fasta, genome, args, seed_mode="hash"):
     torch.cuda.reset_peak_memory_stats()
     sw_banded.reset_launches()
     fm_search.reset_launches()
+    seed_chain.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
@@ -1639,10 +1706,20 @@ def phase_align(work, fasta, genome, args, seed_mode="hash"):
     if seed_mode == "fm":
         launches.update(fm_search.LAUNCHES)
         on_path.append("fm_smem")
+    else:
+        launches.update(seed_chain.LAUNCHES)
+        on_path.append("seed_chain")
     check(rc == 0, f"align CLI returned {rc}")
     for k in on_path:
         check(launches[k] > 0, f"{k} was not launched on the main path")
     snap = metrics.snapshot()
+    if seed_mode == "hash":
+        # one launch a step, every read through it
+        check(launches["seed_chain"] == snap.get("align.batches"),
+              "seed_chain did not launch once a step")
+        check(snap.get("align.seed_chain.kernel_reads")
+              == snap.get("align.reads"),
+              "not every read went through the seed_chain kernel")
     device_s = float(snap.get("align.device_step_s", 0.0))
     index_s = float(snap.get("time.align.index_load", 0.0))
     check(index_s > 0, "the index load was not timed")
@@ -3238,8 +3315,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from concurrent.futures import ThreadPoolExecutor
 
-    from speedseq_tpu_torch.ops import (fm_search, sv_cluster, sv_combine,
-                                        sw_banded, sw_unbanded)
+    from speedseq_tpu_torch.ops import (fm_search, seed_chain, sv_cluster,
+                                        sv_combine, sw_banded, sw_unbanded)
     from speedseq_tpu_torch.utils import synth
 
     smi = nvidia_smi("name,power.limit")
@@ -3252,7 +3329,8 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    mods = (sw_banded, sv_cluster, fm_search, sw_unbanded, sv_combine)
+    mods = (sw_banded, sv_cluster, fm_search, sw_unbanded, sv_combine,
+            seed_chain)
     with ThreadPoolExecutor(len(mods)) as pool:    # one nvcc per source
         list(pool.map(lambda m: m.build(verbose_ptxas=True), mods))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3288,6 +3366,8 @@ def main() -> int:
         fasta = os.path.join(work, "genome.fa")
         synth.write_fasta(fasta, genome)
         phase_parity(work, fasta, genome, args)
+        records["seed_chain"] = phase_seed_chain(
+            fasta, genome, args, clock_mhz * 1e6, props.multi_processor_count)
         records.update(phase_fm_kernels(work, fasta, genome, args,
                                         clock_mhz * 1e6,
                                         props.multi_processor_count))

@@ -3,7 +3,8 @@ SW extension (+ mate rescue, extra XA placements) → packed outputs.
 
 Counterpart of speedseq_tpu/align/core.py.  Plain functions on tensors;
 every tensor of a call lies on one device.  Phase 1 seeds either from the
-hash k-mer index (``kidx`` given, the default path) or by SMEM search on
+hash k-mer index (``kidx`` given, the default path: seeding and chaining of
+both ends in one launch of ops/seed_chain.py's kernel) or by SMEM search on
 the FMD index (``kidx=None``, ``seed_mode="fm"``: the ``fm_smem`` and
 ``fm_sa_walk`` kernels of ops/fm_search.py); the two banded
 Smith-Waterman kernels (ops/sw_banded.py) do the DP.  The host side (numpy
@@ -33,9 +34,10 @@ import torch
 import torch.nn.functional as Fn
 
 from ..index.fm import FMIndex, get_ref_window_packed
-from ..index.kmer import KmerIndex, find_seeds_hash
+from ..index.kmer import KmerIndex
 from ..utils.metrics import metrics
-from .chain import chain_seeds, chain_seeds_nms
+from ..ops.seed_chain import seed_chain
+from .chain import chain_seeds
 from .seeding import find_seeds
 from .sw import SWParams, banded_sw, banded_sw_pallas, banded_sw_score_pallas
 
@@ -113,13 +115,14 @@ def _window_start(anchor_rpos, anchor_qpos):
 
 def _chains(fm: FMIndex, reads, lengths, n_chains, stride, min_seed_len,
             max_hits, kidx):
-    """Seed and chain: hash seeds + NMS chaining when ``kidx`` is given,
-    else SMEM seeds on the FMD index + the sorting chainer."""
+    """Seed and chain: hash seeds + NMS chaining when ``kidx`` is given
+    (ops/seed_chain.py), else SMEM seeds on the FMD index + the sorting
+    chainer."""
     L = reads.shape[1]
     if kidx is not None:
-        seeds = find_seeds_hash(kidx, reads, lengths, k=min_seed_len,
-                                stride=stride, max_hits=max_hits)
-        return chain_seeds_nms(seeds, L, k=n_chains)
+        return seed_chain(kidx, [(reads, lengths)], k=min_seed_len,
+                          stride=stride, max_hits=max_hits,
+                          n_chains=n_chains)[0][0]
     seeds = find_seeds(fm, reads, lengths, stride=stride,
                        min_seed_len=min_seed_len, max_hits=max_hits)
     return chain_seeds(seeds, L, k=n_chains)
@@ -173,15 +176,23 @@ def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
     """Phase 1 without any DP: chain weight (exact-match query coverage) is
     the selection score; the selected slots get real scores and cigars from
     the single extension pass."""
+    if kidx is not None:
+        return _hash_weight_candidates(kidx, [(reads, lengths)], n_chains,
+                                       stride, min_seed_len, max_hits)[0]
     reads = reads.to(i32)
     chains = _chains(fm, reads, lengths, n_chains, stride, min_seed_len,
                      max_hits, kidx)
     diag = chains.anchor_rpos - chains.anchor_qpos
+    return _weighted(chains, diag + chains.qspan_beg, diag + chains.qspan_end,
+                     torch.where(chains.valid, chains.weight, 0))
+
+
+def _weighted(chains, pos, rend_pos, score) -> ScoredChains:
     return ScoredChains(
-        pos=diag + chains.qspan_beg,
-        rend_pos=diag + chains.qspan_end,
+        pos=pos,
+        rend_pos=rend_pos,
         strand=chains.strand,
-        score=torch.where(chains.valid, chains.weight, 0),
+        score=score,
         anchor_rpos=chains.anchor_rpos,
         anchor_qpos=chains.anchor_qpos,
         qspan_beg=chains.qspan_beg,
@@ -189,6 +200,16 @@ def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
         qend=chains.qspan_end,
         valid=chains.valid,
     )
+
+
+def _hash_weight_candidates(kidx: KmerIndex, ends, n_chains, stride,
+                            min_seed_len, max_hits) -> list:
+    """weight_candidates of each (reads, lengths) end on the hash path: one
+    seed_chain call for all ends (one launch on cuda).  The chains' weight
+    is already 0 where a chain is not valid, so it is the score as it is."""
+    return [_weighted(ch, pos, rend, ch.weight) for ch, pos, rend in
+            seed_chain(kidx, ends, k=min_seed_len, stride=stride,
+                       max_hits=max_hits, n_chains=n_chains)]
 
 
 def score_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
@@ -598,10 +619,18 @@ def fused_align_step(fm: FMIndex, reads1, lengths1, reads2=None,
         kw["params"] = params
     else:
         raise ValueError(f"unknown score_mode {score_mode!r}")
+    both = paired and reads2 is not None
     with _stage("seed_chain"):
-        sc1 = phase1(fm, reads1, lengths1, **kw)
-        sc2 = (phase1(fm, reads2, lengths2, **kw)
-               if paired and reads2 is not None else None)
+        if score_mode == "weight" and kidx is not None:
+            # both ends through one seed_chain launch
+            ends = [(reads1, lengths1)] + ([(reads2, lengths2)] if both
+                                           else [])
+            scs = _hash_weight_candidates(kidx, ends, n_chains, stride,
+                                          min_seed_len, max_hits)
+            sc1, sc2 = scs[0], (scs[1] if both else None)
+        else:
+            sc1 = phase1(fm, reads1, lengths1, **kw)
+            sc2 = phase1(fm, reads2, lengths2, **kw) if both else None
     k1 = k2 = None
     if sc2 is not None:
         with _stage("select"):

@@ -4,5 +4,7 @@
   traceback, each with a plain PyTorch twin;
 - sv_cluster: the serial cluster sweep over sorted LUMPY evidence, with
   a plain PyTorch twin;
-- nvcc_build: the nvcc + ctypes build both use.
+- seed_chain: the align step's hash seeding and NMS chaining of both
+  ends in one launch, with the plain composition as its twin;
+- nvcc_build: the nvcc + ctypes build they use.
 """

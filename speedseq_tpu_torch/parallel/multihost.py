@@ -348,10 +348,10 @@ def launch_counts() -> str:
     as JSON: what the worker lines print."""
     import json
 
-    from ..ops import fm_search, sv_cluster, sw_banded
+    from ..ops import fm_search, seed_chain, sv_cluster, sw_banded
 
     return json.dumps({**sw_banded.LAUNCHES, **fm_search.LAUNCHES,
-                       **sv_cluster.LAUNCHES})
+                       **sv_cluster.LAUNCHES, **seed_chain.LAUNCHES})
 
 
 def _shard_batches(batch_iter, num_processes: int, process_id: int):

@@ -1292,3 +1292,202 @@ def test_every_launch_of_a_step_lies_in_one_stage_span(stage_world):
     for a, b, name in calls:
         inside = [s for s in spans if s[0] <= a and b <= s[1]]
         assert len(inside) == 1, (name, a, b)
+
+
+# --------------------------------------------------- the seed_chain kernel
+
+@pytest.fixture(scope="module")
+def seed_world():
+    """KmerIndex (on the CPU) of a random and of a repeat-rich 400 kbp
+    genome at k 17, 19 and 24."""
+    from speedseq_tpu_torch.index import kmer
+    from speedseq_tpu_torch.utils import seed_chain_cases as cases
+
+    out = {}
+    for kind in ("random", "repeats"):
+        g = cases.genome(kind, 400_000, seed=11)
+        for k in (17, 19, 24):
+            out[kind, k] = (g, kmer.build_kmer_index(g, k=k))
+    return out
+
+
+def _on_card(kidx):
+    return kidx._replace(**{f: getattr(kidx, f).cuda() for f in
+                            ("bucket_start", "positions", "fp")})
+
+
+def _assert_chains_equal(got, want):
+    (gc, gp, gr), (wc, wp, wr) = got, want
+    for name in gc._fields:
+        a, b = getattr(gc, name), getattr(wc, name)
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), name
+    assert torch.equal(gp.cpu(), wp.cpu()) and torch.equal(gr.cpu(), wr.cpu())
+
+
+@pytest.mark.parametrize("kind,k,stride,H,K,B,L", [
+    ("random", 19, 8, 4, 4, 2048, 151), ("repeats", 19, 8, 4, 4, 2048, 151),
+    ("repeats", 17, 8, 4, 2, 1, 151), ("random", 24, 8, 4, 8, 333, 151),
+    ("repeats", 24, 8, 8, 8, 257, 151), ("repeats", 17, 1, 4, 4, 64, 151),
+    ("random", 19, 1, 4, 8, 33, 151), ("repeats", 24, 1, 2, 2, 7, 151),
+    ("repeats", 19, 5, 1, 4, 99, 101), ("random", 19, 8, 4, 4, 5, 19),
+    ("repeats", 19, 8, 4, 4, 511, 251)],
+    ids=["random-2048", "repeats-2048", "k17-B1", "k24-K8-odd",
+         "k24-H8", "k17-stride1", "stride1-K8", "k24-stride1-H2",
+         "stride5-H1", "width-k", "width-251"])
+def test_seed_chain_kernel_matches_twin(seed_world, kind, k, stride, H, K,
+                                        B, L):
+    """Both ends in one launch, bit-equal to the plain twin on the CPU in
+    all eight Chains fields and pos / rend_pos: random and repeat-rich
+    genomes (buckets past max_scan and max_occ), reads with N, shorter
+    than the width and than k, all N; k 17 / 19 / 24, stride 1 (S up to
+    1,080) to 8, max_hits 1 to 8, n_chains 2 / 4 / 8, B 1 to 2,048."""
+    _need_card()
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils import seed_chain_cases as cases
+
+    g, kidx = seed_world[kind, k]
+    ends = [tuple(torch.from_numpy(a) for a in cases.reads(g, B, L,
+                                                            seed=B + e))
+            for e in (0, 1)]
+    before = sc.LAUNCHES["seed_chain"]
+    got = sc.seed_chain(_on_card(kidx), [(r.cuda(), ln.cuda())
+                                         for r, ln in ends],
+                        k=k, stride=stride, max_hits=H, n_chains=K)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["seed_chain"] == before + 1
+    for (r, ln), res in zip(ends, got):
+        want = sc.seed_chain_plain(kidx, r, ln, k, stride, H, K)
+        _assert_chains_equal(res, want)
+    assert any(res[0].valid.any() for res in got)
+
+
+def test_seed_chain_kernel_mixed_ends(seed_world):
+    """Ends of other widths and read types (uint8 and int32, so both go as
+    int32), an end of one read, and one end alone: each equal to the
+    twin."""
+    _need_card()
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils import seed_chain_cases as cases
+
+    g, kidx = seed_world["repeats", 19]
+    ck = _on_card(kidx)
+    r1, l1 = (torch.from_numpy(a) for a in cases.reads(g, 300, 151, seed=1))
+    r2, l2 = (torch.from_numpy(a) for a in cases.reads(g, 1, 96, seed=2))
+    for ends in ([(r1, l1), (r2.to(torch.int32), l2)], [(r2, l2), (r1, l1)],
+                 [(r1.to(torch.int64), l1.to(torch.int64))]):
+        got = sc.seed_chain(ck, [(r.cuda(), ln.cuda()) for r, ln in ends])
+        for (r, ln), res in zip(ends, got):
+            _assert_chains_equal(res, sc.seed_chain_plain(kidx, r, ln))
+
+
+def test_seed_chain_makes_no_host_sync(seed_world):
+    """The seed_chain stage of the step (both ends' ScoredChains) under
+    torch's sync debug mode "error": a host sync would raise."""
+    _need_card()
+    from speedseq_tpu_torch.align import core
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils import seed_chain_cases as cases
+
+    g, kidx = seed_world["random", 19]
+    ck = _on_card(kidx)
+    ends = [tuple(torch.from_numpy(a).cuda()
+                  for a in cases.reads(g, 1024, 151, seed=e)) for e in (0, 1)]
+    core._hash_weight_candidates(ck, ends, 4, 8, 19, 4)   # builds the library
+    torch.cuda.synchronize()
+    before = sc.LAUNCHES["seed_chain"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = core._hash_weight_candidates(ck, ends, 4, 8, 19, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sc.LAUNCHES["seed_chain"] == before + 1
+    assert len(got) == 2 and got[1].valid.shape == (1024, 4)
+
+
+def test_seed_chain_kernel_refuses_what_it_cannot_take(seed_world):
+    _need_card()
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils import seed_chain_cases as cases
+
+    g, kidx = seed_world["random", 19]
+    ck = _on_card(kidx)
+    r, ln = (torch.from_numpy(a).cuda() for a in cases.reads(g, 4, 151))
+    for kw in (dict(k=16), dict(k=25), dict(max_hits=9), dict(n_chains=0),
+               dict(max_scan=33, max_hits=4)):
+        with pytest.raises(ValueError):
+            sc.seed_chain(ck, [(r, ln)], **kw)
+    with pytest.raises(ValueError, match="read width"):
+        sc.seed_chain(ck, [(r[:, :18], ln)])
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.full((1, 8000), 4, dtype=torch.uint8, device="cuda")
+        sc.seed_chain(ck, [(wide, ln[:1])], stride=1, max_hits=8)
+    with pytest.raises(ValueError, match="one device"):
+        sc.seed_chain(ck, [(r, ln.cpu())])
+
+
+@pytest.mark.parametrize("score_mode", ["weight", "sw"])
+def test_step_scored_chains_cuda_matches_cpu(mesh_world, score_mode):
+    """fused_align_step on 256 pairs: each end's ScoredChains equal on
+    cuda and cpu; weight mode launches seed_chain once a step for both
+    ends (``align.seed_chain.kernel_reads`` + 512), sw mode once an end."""
+    _need_card()
+    from speedseq_tpu_torch.align import core
+    from speedseq_tpu_torch.align.pipeline import _load_fm
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    _, fa, rd = mesh_world
+    B = 256
+    pad = lambda s: torch.from_numpy(np.pad(s[:B], ((0, 0), (0, 1)),
+                                            constant_values=4))
+    ln = torch.full((B,), 150, dtype=torch.int32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        _, fm, kidx = _load_fm(fa, torch.device(dev))
+        args = [t.to(dev) for t in (pad(rd.seq1), ln, pad(rd.seq2), ln)]
+        before = sc.LAUNCHES["seed_chain"]
+        reads0 = metrics.snapshot().get("align.seed_chain.kernel_reads", 0)
+        res[dev] = core.fused_align_step(fm, *args, kidx=kidx,
+                                         score_mode=score_mode)
+        torch.cuda.synchronize()
+        n = metrics.snapshot().get("align.seed_chain.kernel_reads", 0)
+        launches = sc.LAUNCHES["seed_chain"] - before
+        if dev == "cuda":
+            assert launches == (1 if score_mode == "weight" else 2)
+            assert n - reads0 == 2 * B
+        else:
+            assert launches == 0 and n == reads0
+    for e in (0, 1):
+        a, b = res["cpu"][e][3], res["cuda"][e][3]
+        for name in a._fields:
+            assert torch.equal(getattr(a, name),
+                               getattr(b, name).cpu()), (e, name)
+
+
+def test_hash_align_cuda_matches_cpu(mesh_world, tmp_path):
+    """align_fastq on 2,048 pairs (batches of 512) on cuda against cpu: the
+    BAM triples record-equal; every step launched seed_chain once and
+    ``align.seed_chain.kernel_reads`` equals ``align.reads``."""
+    _need_card()
+    from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
+    from speedseq_tpu_torch.formats.bam import read_bam
+    from speedseq_tpu_torch.ops import seed_chain as sc
+    from speedseq_tpu_torch.utils.metrics import metrics
+
+    d, fa, _ = mesh_world
+    cfg = AlignConfig(batch_size=512)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        metrics.reset()
+        before = sc.LAUNCHES["seed_chain"]
+        outs[dev] = align_fastq(fa, str(d / "1.fq"), str(d / "2.fq"),
+                                out_prefix=str(tmp_path / dev), config=cfg,
+                                device=dev)
+        snap = metrics.snapshot()
+    assert sc.LAUNCHES["seed_chain"] == before + 4
+    assert snap["align.seed_chain.kernel_reads"] == snap["align.reads"] == 4096
+    for k in ("bam", "splitters.bam", "discordants.bam"):
+        hc, rc = read_bam(outs["cpu"][k])
+        hg, rg = read_bam(outs["cuda"][k])
+        assert hc.text == hg.text
+        assert len(rc) == len(rg) and all(a == b for a, b in zip(rc, rg)), k
