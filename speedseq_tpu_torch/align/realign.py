@@ -23,7 +23,7 @@ own.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -84,100 +84,113 @@ def _record_to_read(rec: SAMRecord) -> Tuple[np.ndarray, np.ndarray]:
     return seq, qual
 
 
+def _pack(recs: List[SAMRecord], names: List[str],
+          max_len: int) -> ReadBatch:
+    """One padded batch of ``recs`` in their original orientation, each
+    read's group carried as an ``RG:<id>`` comment."""
+    n = len(recs)
+    seq = np.full((n, max_len), 4, np.uint8)
+    qual = np.zeros((n, max_len), np.uint8)
+    length = np.zeros(n, np.int32)
+    comments = []
+    for i, rec in enumerate(recs):
+        s, q = _record_to_read(rec)
+        L = min(len(s), max_len)
+        seq[i, :L] = s[:L]
+        qual[i, :L] = q[:L]
+        length[i] = L
+        comments.append(f"RG:{rec.get_tag('RG') or ''}")
+    return ReadBatch(seq, qual, length, list(names), comments)
+
+
 def iter_bam_pairs(
     bam_paths: List[str],
     rg_ids: Optional[set],
     batch_size: int,
     max_len: int,
     rename: bool = False,
-) -> Iterator[Tuple[ReadBatch, ReadBatch]]:
+) -> Iterator[Tuple[ReadBatch, Optional[ReadBatch]]]:
     """Pair up primary records by qname across coordinate-sorted BAMs
-    (bamtofastq.py + bamfilterrg.py roles), yielding padded batches.
-    Counter ``realign.pending_peak``: the most reads held waiting for
-    their mates."""
+    (bamtofastq.py + bamfilterrg.py roles), yielding padded batches in
+    input order: the BAMs in turn, each pair where its later mate lies.
+
+    The work runs a batch's stretch at a time under three spans:
+    ``realign.extract.decode`` (BGZF inflate and record parse),
+    ``realign.extract.pair`` (the mate dict and the batch list) and
+    ``realign.extract.pack`` (original orientation and padded arrays).
+    Counters: ``realign.records`` (primary records taken),
+    ``realign.pairs``, ``realign.orphans`` (reads whose mate never
+    came) and ``realign.pending_peak`` (the most reads held waiting for
+    their mates)."""
     pending: Dict[str, SAMRecord] = {}
     peak = 0
-    buf: List[Tuple[str, SAMRecord, SAMRecord]] = []
+    ready: List[Tuple[str, SAMRecord, SAMRecord]] = []
     n_emitted = 0
 
-    def flush():
-        nonlocal buf, n_emitted
-        if not buf:
-            return None
-        n = len(buf)
-        def mk(recs):
-            seq = np.full((n, max_len), 4, np.uint8)
-            qual = np.zeros((n, max_len), np.uint8)
-            length = np.zeros(n, np.int32)
-            names, comments = [], []
-            for i, (name, rec) in enumerate(recs):
-                s, q = _record_to_read(rec)
-                L = min(len(s), max_len)
-                seq[i, :L] = s[:L]
-                qual[i, :L] = q[:L]
-                length[i] = L
-                names.append(name)
-                comments.append(f"RG:{rec.get_tag('RG') or ''}")
-            return ReadBatch(seq, qual, length, names, comments)
+    def name(qname: str) -> str:
+        nonlocal n_emitted
+        n_emitted += 1
+        return f"r{n_emitted - 1}" if rename else qname
 
-        items = buf
-        buf = []
-        names = []
-        for qname, r1, r2 in items:
-            nm = f"r{n_emitted}" if rename else qname
-            n_emitted += 1
-            names.append(nm)
-        b1 = mk([(nm, r1) for nm, (q, r1, r2) in zip(names, items)])
-        b2 = mk([(nm, r2) for nm, (q, r1, r2) in zip(names, items)])
-        return b1, b2
+    def pack(items) -> Tuple[ReadBatch, ReadBatch]:
+        names = [name(q) for q, _, _ in items]
+        return (_pack([r1 for _, r1, _ in items], names, max_len),
+                _pack([r2 for _, _, r2 in items], names, max_len))
 
     for path in bam_paths:
         with BAMReader(path) as rd:
-            for rec in rd:
-                if rec.flag & (FSECONDARY | FSUPPLEMENTARY):
+            it = iter(rd)
+            while True:
+                with metrics.timer("realign.extract.decode"):
+                    recs = list(itertools.islice(it, 2 * batch_size))
+                if not recs:
+                    break
+                with metrics.timer("realign.extract.pair"):
+                    taken = 0
+                    for rec in recs:
+                        if rec.flag & (FSECONDARY | FSUPPLEMENTARY):
+                            continue
+                        if rec.seq in ("*", ""):
+                            continue
+                        if rg_ids is not None and (
+                                rec.get_tag("RG") or "") not in rg_ids:
+                            continue
+                        taken += 1
+                        mate = pending.pop(rec.qname, None)
+                        if mate is None:
+                            pending[rec.qname] = rec
+                            peak = max(peak, len(pending))
+                            continue
+                        r1, r2 = ((rec, mate) if rec.flag & FREAD1
+                                  else (mate, rec))
+                        ready.append((rec.qname, r1, r2))
+                    metrics.add("realign.records", taken)
+                    n_full = len(ready) // batch_size * batch_size
+                    full, ready = ready[:n_full], ready[n_full:]
+                if not full:
                     continue
-                if rec.seq in ("*", ""):
-                    continue
-                if rg_ids is not None and (rec.get_tag("RG") or "") not in rg_ids:
-                    continue
-                mate = pending.pop(rec.qname, None)
-                if mate is None:
-                    pending[rec.qname] = rec
-                    peak = max(peak, len(pending))
-                    continue
-                r1, r2 = (
-                    (rec, mate) if rec.flag & FREAD1 else (mate, rec)
-                )
-                buf.append((rec.qname, r1, r2))
-                if len(buf) >= batch_size:
-                    yield flush()
-    if buf:
-        yield flush()
+                with metrics.timer("realign.extract.pack"):
+                    out = [pack(full[i:i + batch_size])
+                           for i in range(0, n_full, batch_size)]
+                metrics.add("realign.pairs", n_full)
+                yield from out
+    if ready:
+        with metrics.timer("realign.extract.pack"):
+            last = pack(ready)
+        metrics.add("realign.pairs", len(ready))
+        yield last
     metrics.add("realign.pending_peak", peak)
+    metrics.add("realign.orphans", len(pending))
     # orphans: reads whose mate never appeared (truncated BAM, single-end
     # read groups, mate filtered upstream) are realigned single-end rather
     # than silently dropped
-    if pending:
-        orphans = list(pending.values())
-        pending.clear()
-        for i in range(0, len(orphans), batch_size):
-            chunk = orphans[i : i + batch_size]
-            n = len(chunk)
-            seq = np.full((n, max_len), 4, np.uint8)
-            qual = np.zeros((n, max_len), np.uint8)
-            length = np.zeros(n, np.int32)
-            names, comments = [], []
-            for j, rec in enumerate(chunk):
-                s, q = _record_to_read(rec)
-                L = min(len(s), max_len)
-                seq[j, :L] = s[:L]
-                qual[j, :L] = q[:L]
-                length[j] = L
-                nm = f"r{n_emitted}" if rename else rec.qname
-                n_emitted += 1
-                names.append(nm)
-                comments.append(f"RG:{rec.get_tag('RG') or ''}")
-            yield ReadBatch(seq, qual, length, names, comments), None
+    orphans = list(pending.values())
+    pending.clear()
+    for i in range(0, len(orphans), batch_size):
+        chunk = orphans[i:i + batch_size]
+        with metrics.timer("realign.extract.pack"):
+            b = _pack(chunk, [name(r.qname) for r in chunk], max_len)
+        yield b, None
 
 
 def realign(
@@ -189,8 +202,10 @@ def realign(
     device=None,
 ) -> Dict[str, str]:
     """Run the realign module on ``device`` (cuda unless the caller asks
-    for cpu); returns output paths.  Timer ``realign.extract``: the BAM
-    decode and batch building, summed over the input."""
+    for cpu); returns output paths.  Span ``realign.extract``: the BAM
+    decode and batch building, summed over the input (its parts in
+    ``iter_bam_pairs``); counter ``realign.libraries``: the groups of
+    ``read_groups_by_library``, each its own duplicate scope."""
     cfg = config
     rg_lines = merged_rg_lines(bam_paths)
     if cfg.rg_string:  # -R override (supersedes input BAM readgroups)
@@ -198,12 +213,14 @@ def realign(
     if not rg_lines:
         # RG synthesis fallback (bin/speedseq:1899-1911)
         rg_lines = [f"@RG\tID:{cfg.rg_id}\tSM:{cfg.sample}"]
-    libs = read_groups_by_library("\n".join(rg_lines))
+    metrics.add("realign.libraries",
+                len(read_groups_by_library("\n".join(rg_lines))))
 
     # the reference processes libraries separately only to bound dup-
-    # marking scope (bin/speedseq:1930-1973); our dup signatures already
-    # key per pair and all libraries share the aligner, so one stream
-    # suffices — per-library RG retention flows through the RG: comments
+    # marking scope (bin/speedseq:1930-1973); the dup signatures here are
+    # keyed by library (pipeline._lib_map over these @RG lines) and all
+    # libraries share the aligner, so one stream suffices: each read's
+    # group flows through the RG: comments
     batches = metrics.timed(iter_bam_pairs(
         bam_paths, None, cfg.batch_size, cfg.max_read_len, rename=rename
     ), "realign.extract")
