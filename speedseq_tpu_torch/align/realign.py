@@ -23,15 +23,15 @@ own.
 
 from __future__ import annotations
 
-import itertools
-from typing import Dict, Iterator, List, Optional, Tuple
+import struct
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..formats.bam import BAMReader
+from .. import native
+from ..formats.bam import BAM_MAGIC, BAMReader
 from ..formats.fastq import ReadBatch
-from ..formats.fasta import encode_bases
-from ..formats.sam import FREAD1, FREVERSE, FSECONDARY, FSUPPLEMENTARY, SAMRecord
+from ..formats.sam import FREAD1, FREVERSE, FSECONDARY, FSUPPLEMENTARY
 from ..utils.metrics import metrics
 from .pipeline import AlignConfig, align_stream
 
@@ -70,37 +70,147 @@ def merged_rg_lines(bam_paths: List[str]) -> List[str]:
     return out
 
 
-def _record_to_read(rec: SAMRecord) -> Tuple[np.ndarray, np.ndarray]:
-    """Original-orientation (seq codes, quals) — bamtofastq.py behavior:
-    reverse-strand alignments are reverse-complemented back."""
-    seq = encode_bases(rec.seq.encode())
-    if rec.qual == "*":
-        qual = np.full(len(seq), 30, np.uint8)
-    else:
-        qual = np.frombuffer(rec.qual.encode(), np.uint8) - 33
-    if rec.flag & FREVERSE:
-        seq = np.where(seq[::-1] < 4, 3 - seq[::-1], 4).astype(np.uint8)
-        qual = qual[::-1].copy()
-    return seq, qual
+# The extract reads each lane BAM a chunk of whole BGZF blocks at a time, so
+# its memory is a chunk and the reads still waiting for their mates, whatever
+# the size of the BAM.
+CHUNK_BYTES = 4 << 20      # compressed bytes a read
+INFLATE_THREADS = 4        # of the host's cores: the dispatch and drain
+                           # threads of align_stream keep theirs
+_SKIP = FSECONDARY | FSUPPLEMENTARY    # records bamtofastq.py leaves out
+_TURN = FREVERSE                       # records turned back to the read's
+                                       # original orientation
 
 
-def _pack(recs: List[SAMRecord], names: List[str],
-          max_len: int) -> ReadBatch:
-    """One padded batch of ``recs`` in their original orientation, each
-    read's group carried as an ``RG:<id>`` comment."""
-    n = len(recs)
-    seq = np.full((n, max_len), 4, np.uint8)
-    qual = np.zeros((n, max_len), np.uint8)
-    length = np.zeros(n, np.int32)
-    comments = []
-    for i, rec in enumerate(recs):
-        s, q = _record_to_read(rec)
-        L = min(len(s), max_len)
-        seq[i, :L] = s[:L]
-        qual[i, :L] = q[:L]
-        length[i] = L
-        comments.append(f"RG:{rec.get_tag('RG') or ''}")
-    return ReadBatch(seq, qual, length, list(names), comments)
+def _inflated(path: str) -> Iterator[bytes]:
+    """The BGZF stream of ``path`` inflated a read of ``CHUNK_BYTES`` at a
+    time, cut back to whole blocks (the rest goes with the next read).
+    Counters ``realign.extract.chunks``, ``.inflated_bytes``."""
+    with open(path, "rb") as fh:
+        buf = b""
+        while True:
+            data = fh.read(CHUNK_BYTES)
+            buf = buf + data if buf else data
+            whole = native.bgzf_whole(buf)
+            if whole:
+                raw = native.bgzf_decompress(memoryview(buf)[:whole],
+                                             INFLATE_THREADS)
+                buf = buf[whole:]
+                metrics.add("realign.extract.chunks", 1)
+                metrics.add("realign.extract.inflated_bytes", len(raw))
+                yield raw
+            if not data:
+                if buf:
+                    raise ValueError(f"{path}: truncated BGZF block")
+                return
+
+
+def _header_end(buf: bytes) -> int:
+    """Offset of the first record in an inflated BAM stream, or -1 while
+    the header runs past ``buf``."""
+    if len(buf) >= 4 and buf[:4] != BAM_MAGIC:
+        raise ValueError("not a BAM file")
+    if len(buf) < 12:
+        return -1
+    off = 8 + struct.unpack_from("<i", buf, 4)[0]
+    if len(buf) < off + 4:
+        return -1
+    (n_ref,) = struct.unpack_from("<i", buf, off)
+    off += 4
+    for _ in range(n_ref):
+        if len(buf) < off + 4:
+            return -1
+        off += 8 + struct.unpack_from("<i", buf, off)[0]
+    return off if len(buf) >= off else -1
+
+
+def _records(path: str) -> Iterator[Tuple[bytes, int, np.ndarray, int]]:
+    """The whole records of the BAM at ``path``, a chunk at a time: (the
+    inflated bytes, the offset of the records in them, a view of the
+    records, the reads among them); a record cut by the chunk's end goes
+    with the next chunk."""
+    carry, first = b"", -1
+    for raw in _inflated(path):
+        buf = carry + raw if carry else raw
+        if first < 0:
+            first = _header_end(buf)
+            if first < 0:
+                carry = buf
+                continue
+        recs = np.frombuffer(buf, np.uint8, len(buf) - first, first)
+        nbytes, rows = native.bam_whole(recs, _SKIP)
+        if nbytes:
+            yield buf, first, recs[:nbytes], rows
+        carry, first = buf[first + nbytes:], 0
+    if carry or first < 0:
+        raise ValueError(f"{path}: truncated BAM")
+
+
+class _Rows(NamedTuple):
+    """Reads in their original orientation, a row each: padded codes and
+    qualities, lengths, read groups (indices into the extract's table)."""
+    seq: np.ndarray
+    qual: np.ndarray
+    length: np.ndarray
+    rg: np.ndarray
+
+    def take(self, i) -> "_Rows":
+        return _Rows(*(c[i] for c in self))
+
+
+class _Store:
+    """The extract's rows by id: the current chunk's (ids ``base`` on) and
+    those of earlier chunks still wanted (``old_ids``, ascending)."""
+
+    def __init__(self, max_len: int):
+        z = np.zeros((0, max_len), np.uint8)
+        self.old = _Rows(z, z, np.zeros(0, np.int32), np.zeros(0, np.int32))
+        self.old_ids = np.zeros(0, np.int64)
+        self.cur, self.base = self.old, 0
+
+    def add(self, rows: _Rows) -> int:
+        """Make ``rows`` the current chunk; returns the id of its first."""
+        self.base += len(self.cur.length)
+        self.cur = rows
+        return self.base
+
+    def take(self, ids: np.ndarray) -> _Rows:
+        fresh = ids >= self.base
+        if fresh.all():
+            return self.cur.take(ids - self.base)
+        old = self.old.take(np.searchsorted(self.old_ids, ids[~fresh]))
+        if not fresh.any():
+            return old
+        new = self.cur.take(ids[fresh] - self.base)
+        pos = np.empty(len(ids), np.int64)
+        pos[~fresh] = np.arange(len(old.length))
+        pos[fresh] = len(old.length) + np.arange(len(new.length))
+        return _Rows(*(np.concatenate([a, b])[pos] for a, b in zip(old, new)))
+
+    def keep(self, ids: np.ndarray) -> None:
+        """Keep only the rows ``ids`` (ascending) for later chunks."""
+        self.old = self.take(ids)
+        self.old_ids = ids
+
+
+def _rg_index(src: np.ndarray, rg_off: np.ndarray, rg_len: np.ndarray,
+              table: Dict[bytes, int]) -> np.ndarray:
+    """Each row's read group, the RG value at (``rg_off``, ``rg_len``) in
+    ``src`` (length 0 without one: b""), as its index in ``table``; values
+    new to the table are added in the order np.unique gives.  Only the
+    first row of each run of equal values is looked up: a lane's records
+    mostly share one."""
+    n, w = len(rg_off), int(rg_len.max(initial=0))
+    if w == 0:
+        return np.full(n, table.setdefault(b"", len(table)), np.int32)
+    j = np.arange(w)
+    inside = j < rg_len[:, None]
+    at = np.where(inside, np.maximum(rg_off, 0)[:, None] + j, 0)
+    mat = np.where(inside, src[at], 0).astype(np.uint8)
+    runs = np.flatnonzero(np.r_[True, (mat[1:] != mat[:-1]).any(axis=1)])
+    uniq, inv = np.unique(mat[runs], axis=0, return_inverse=True)
+    ids = np.array([table.setdefault(u.tobytes().rstrip(b"\0"), len(table))
+                    for u in uniq], np.int32)
+    return np.repeat(ids[inv.reshape(-1)], np.diff(np.r_[runs, n]))
 
 
 def iter_bam_pairs(
@@ -114,82 +224,110 @@ def iter_bam_pairs(
     (bamtofastq.py + bamfilterrg.py roles), yielding padded batches in
     input order: the BAMs in turn, each pair where its later mate lies.
 
-    The work runs a batch's stretch at a time under three spans:
-    ``realign.extract.decode`` (BGZF inflate and record parse),
-    ``realign.extract.pair`` (the mate dict and the batch list) and
-    ``realign.extract.pack`` (original orientation and padded arrays).
-    Counters: ``realign.records`` (primary records taken),
-    ``realign.pairs``, ``realign.orphans`` (reads whose mate never
-    came) and ``realign.pending_peak`` (the most reads held waiting for
-    their mates)."""
-    pending: Dict[str, SAMRecord] = {}
+    A chunk at a time (``_records``), under three spans:
+    ``realign.extract.decode`` (the chunk's read, its parallel inflate and
+    the scan for its whole records, in C), ``realign.extract.pack`` (the
+    records' reads in their original orientation as padded rows in one C
+    pass, the read-group filter as column operations, and each batch a
+    gather of rows) and ``realign.extract.pair`` (the mate dict, name to
+    row, and the batch list).  Counters: ``realign.records`` (primary
+    records taken), ``realign.pairs``, ``realign.orphans`` (reads whose
+    mate never came), ``realign.pending_peak`` (the most reads held
+    waiting for their mates), and ``realign.extract.chunks`` and
+    ``.inflated_bytes``."""
+    if not native.available():
+        raise RuntimeError("realign's extract needs the native runtime "
+                           "(g++ and zlib)")
+    store = _Store(max_len)
+    rg_table: Dict[bytes, int] = {}
+    comment: List[str] = []
+    pending: Dict[bytes, int] = {}
     peak = 0
-    ready: List[Tuple[str, SAMRecord, SAMRecord]] = []
+    r1: List[int] = []           # the ready pairs' rows, in input order
+    r2: List[int] = []
+    names: List[bytes] = []
     n_emitted = 0
 
-    def name(qname: str) -> str:
+    def pack(i1, i2, keys) -> Tuple[ReadBatch, Optional[ReadBatch]]:
         nonlocal n_emitted
-        n_emitted += 1
-        return f"r{n_emitted - 1}" if rename else qname
-
-    def pack(items) -> Tuple[ReadBatch, ReadBatch]:
-        names = [name(q) for q, _, _ in items]
-        return (_pack([r1 for _, r1, _ in items], names, max_len),
-                _pack([r2 for _, _, r2 in items], names, max_len))
+        nm = ([f"r{k}" for k in range(n_emitted, n_emitted + len(keys))]
+              if rename else [k.decode() for k in keys])
+        n_emitted += len(keys)
+        out = []
+        for ids in (i1, i2):
+            if ids is None:
+                out.append(None)
+                continue
+            rows = store.take(np.asarray(ids, np.int64))
+            out.append(ReadBatch(rows.seq, rows.qual, rows.length, list(nm),
+                                 [comment[g] for g in rows.rg.tolist()]))
+        return out[0], out[1]
 
     for path in bam_paths:
-        with BAMReader(path) as rd:
-            it = iter(rd)
-            while True:
-                with metrics.timer("realign.extract.decode"):
-                    recs = list(itertools.islice(it, 2 * batch_size))
-                if not recs:
-                    break
-                with metrics.timer("realign.extract.pair"):
-                    taken = 0
-                    for rec in recs:
-                        if rec.flag & (FSECONDARY | FSUPPLEMENTARY):
-                            continue
-                        if rec.seq in ("*", ""):
-                            continue
-                        if rg_ids is not None and (
-                                rec.get_tag("RG") or "") not in rg_ids:
-                            continue
-                        taken += 1
-                        mate = pending.pop(rec.qname, None)
-                        if mate is None:
-                            pending[rec.qname] = rec
-                            peak = max(peak, len(pending))
-                            continue
-                        r1, r2 = ((rec, mate) if rec.flag & FREAD1
-                                  else (mate, rec))
-                        ready.append((rec.qname, r1, r2))
-                    metrics.add("realign.records", taken)
-                    n_full = len(ready) // batch_size * batch_size
-                    full, ready = ready[:n_full], ready[n_full:]
-                if not full:
-                    continue
-                with metrics.timer("realign.extract.pack"):
-                    out = [pack(full[i:i + batch_size])
-                           for i in range(0, n_full, batch_size)]
-                metrics.add("realign.pairs", n_full)
-                yield from out
-    if ready:
+        chunks = _records(path)
+        while True:
+            with metrics.timer("realign.extract.decode"):
+                got = next(chunks, None)
+            if got is None:
+                break
+            buf, at, recs, n_rows = got
+            with metrics.timer("realign.extract.pack"):
+                rd = native.bam_reads(recs, n_rows, _SKIP, _TURN, max_len)
+                rg = _rg_index(recs, rd.rg_off, rd.rg_len, rg_table)
+                comment += [f"RG:{k.decode()}"
+                            for k in list(rg_table)[len(comment):]]
+                keep = slice(None) if rg_ids is None else np.array(
+                    [k.decode() in rg_ids for k in rg_table], bool)[rg]
+                base = store.add(_Rows(rd.seq, rd.qual, rd.length,
+                                       rg).take(keep))
+                qname = rd.qname_off[keep] + at
+                qend = qname + rd.qname_len[keep]
+                read1 = (rd.flag[keep] & FREAD1) != 0
+            with metrics.timer("realign.extract.pair"):
+                n = len(read1)
+                metrics.add("realign.records", n)
+                pop = pending.pop
+                for rid, a, b, first in zip(
+                        range(base, base + n), qname.tolist(),
+                        qend.tolist(), read1.tolist()):
+                    key = buf[a:b]
+                    mate = pop(key, None)
+                    if mate is None:
+                        pending[key] = rid
+                        if len(pending) > peak:
+                            peak = len(pending)
+                        continue
+                    r1.append(rid if first else mate)
+                    r2.append(mate if first else rid)
+                    names.append(key)
+                n_full = len(names) // batch_size * batch_size
+            with metrics.timer("realign.extract.pack"):
+                out = [pack(r1[i:i + batch_size], r2[i:i + batch_size],
+                            names[i:i + batch_size])
+                       for i in range(0, n_full, batch_size)]
+                del r1[:n_full], r2[:n_full], names[:n_full]
+                store.keep(np.sort(np.concatenate([
+                    np.fromiter(pending.values(), np.int64, len(pending)),
+                    np.asarray(r1 + r2, np.int64)])))
+            metrics.add("realign.pairs", n_full)
+            yield from out
+    if names:
         with metrics.timer("realign.extract.pack"):
-            last = pack(ready)
-        metrics.add("realign.pairs", len(ready))
+            last = pack(r1, r2, names)
+        metrics.add("realign.pairs", len(names))
         yield last
     metrics.add("realign.pending_peak", peak)
     metrics.add("realign.orphans", len(pending))
     # orphans: reads whose mate never appeared (truncated BAM, single-end
     # read groups, mate filtered upstream) are realigned single-end rather
     # than silently dropped
-    orphans = list(pending.values())
+    orphans = list(pending.items())
     pending.clear()
     for i in range(0, len(orphans), batch_size):
         chunk = orphans[i:i + batch_size]
         with metrics.timer("realign.extract.pack"):
-            b = _pack(chunk, [name(r.qname) for r in chunk], max_len)
+            b, _ = pack([rid for _, rid in chunk], None,
+                        [key for key, _ in chunk])
         yield b, None
 
 

@@ -17,7 +17,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -149,6 +149,14 @@ def _load() -> Optional[ctypes.CDLL]:
             _i64, _pi64, _pi64, _p8, _p8, _pu32, _pi64, _pi64, _pi64,
             _pi64, _pi8, _i64, _i64, _i64,
             _pi8, _pi8, _pi32, _pi32, _pi32, _pi32]
+        lib.ssq_bgzf_whole.restype = _i64
+        lib.ssq_bgzf_whole.argtypes = [_p8, _i64]
+        lib.ssq_bam_whole.restype = _i64
+        lib.ssq_bam_whole.argtypes = [_p8, _i64, ctypes.c_uint16, _pi64]
+        lib.ssq_bam_reads.restype = _i64
+        lib.ssq_bam_reads.argtypes = [
+            _p8, _i64, ctypes.c_uint16, ctypes.c_uint16, _i64, _i64, _p8, _p8,
+            _pi32, _pu16, _pi64, _pi64, _pi64, _pi64]
         _lib = lib
         return _lib
 
@@ -451,3 +459,67 @@ def bam_decode(blob: bytes) -> "BamColumns":
         raise ValueError("native BAM decode inconsistency")
     c.ref_end[:] = 0
     return c
+
+
+def bgzf_whole(data) -> int:
+    """Bytes of the longest prefix of ``data`` made of whole BGZF blocks."""
+    lib = _load()
+    assert lib is not None, "native library unavailable"
+    src = np.frombuffer(data, np.uint8)
+    got = lib.ssq_bgzf_whole(
+        _np_ptr(src, ctypes.c_uint8) if len(src) else _p8(), len(src))
+    if got < 0:
+        raise ValueError("malformed BGZF block header")
+    return int(got)
+
+
+def bam_whole(src: np.ndarray, skip_mask: int) -> Tuple[int, int]:
+    """(bytes, rows) of the whole records at the head of the BAM record
+    stream ``src`` (u8): the rows are the records ``bam_reads`` keeps,
+    those with no flag of ``skip_mask`` and a sequence."""
+    lib = _load()
+    assert lib is not None, "native library unavailable"
+    src = np.ascontiguousarray(src, np.uint8)
+    out = np.zeros(2, np.int64)
+    got = lib.ssq_bam_whole(
+        _np_ptr(src, ctypes.c_uint8) if len(src) else _p8(), len(src),
+        skip_mask, _np_ptr(out, _i64))
+    if got < 0:
+        raise ValueError("malformed BAM record")
+    return int(out[0]), int(out[1])
+
+
+class BamReads(NamedTuple):
+    """Reads of BAM records as padded rows (csrc ``ssq_bam_reads``)."""
+    seq: np.ndarray        # (rows, max_len) u8 codes 0-4, padded with 4
+    qual: np.ndarray       # (rows, max_len) u8 phred, padded with 0
+    length: np.ndarray     # (rows,) i32
+    flag: np.ndarray       # (rows,) u16
+    qname_off: np.ndarray  # (rows,) i64 spans in the source bytes
+    qname_len: np.ndarray
+    rg_off: np.ndarray     # -1 without an RG:Z tag
+    rg_len: np.ndarray
+
+
+def bam_reads(src: np.ndarray, rows: int, skip_mask: int, turn_mask: int,
+              max_len: int) -> BamReads:
+    """The ``rows`` reads of ``src``, whole records that ``bam_whole``
+    measured with the same ``skip_mask``: each in its original orientation
+    (records with a flag of ``turn_mask`` reverse-complemented, qualities
+    reversed), qualities all 0xff read 30, cut to ``max_len``."""
+    lib = _load()
+    assert lib is not None, "native library unavailable"
+    src = np.ascontiguousarray(src, np.uint8)
+    i64 = [np.empty(rows, np.int64) for _ in range(4)]
+    r = BamReads(np.empty((rows, max_len), np.uint8),
+                 np.empty((rows, max_len), np.uint8),
+                 np.empty(rows, np.int32), np.empty(rows, np.uint16), *i64)
+    got = lib.ssq_bam_reads(
+        _np_ptr(src, ctypes.c_uint8) if len(src) else _p8(), len(src),
+        skip_mask, turn_mask, max_len, rows,
+        _np_ptr(r.seq, ctypes.c_uint8), _np_ptr(r.qual, ctypes.c_uint8),
+        _np_ptr(r.length, ctypes.c_int32), _np_ptr(r.flag, ctypes.c_uint16),
+        *(_np_ptr(a, _i64) for a in i64))
+    if got != rows:
+        raise ValueError("native BAM read decode inconsistency")
+    return r

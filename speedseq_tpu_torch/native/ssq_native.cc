@@ -692,4 +692,143 @@ int64_t ssq_pileup_expand(
   return R;
 }
 
+// ---------------------------------------------------------------------------
+// The realign extract's stream decode: lane BAMs read a chunk of whole BGZF
+// blocks at a time, the whole records of each inflated chunk turned into the
+// reads' padded rows in one pass (bamtofastq.py's role, without SAMRecords).
+// ---------------------------------------------------------------------------
+
+// Length of the longest prefix of src made of whole BGZF blocks; a block cut
+// by the end of src is left for the next call.  -1 on a malformed header.
+int64_t ssq_bgzf_whole(const uint8_t* src, int64_t n) {
+  int64_t off = 0;
+  while (n - off >= 18) {
+    int64_t bs = block_bsize(src + off, n - off);
+    if (bs < 0) {
+      int xlen = src[off + 10] | (src[off + 11] << 8);
+      if (n - off < kHeaderLen + xlen + 8) break;
+      return -1;
+    }
+    if (bs > n - off) break;
+    off += bs;
+  }
+  return off;
+}
+
+namespace {
+// Bytes that the BAM record at r (past its block_size) needs for its fixed
+// fields, name, cigar, sequence and qualities; -1 for a malformed length.
+inline int64_t record_core_bytes(const uint8_t* r) {
+  uint32_t bin_mq_nl, flag_nc;
+  int32_t lseq;
+  std::memcpy(&bin_mq_nl, r + 8, 4);
+  std::memcpy(&flag_nc, r + 12, 4);
+  std::memcpy(&lseq, r + 16, 4);
+  int64_t lqname = bin_mq_nl & 0xff;
+  if (lqname < 1 || lseq < 0) return -1;
+  return 32 + lqname + 4 * static_cast<int64_t>(flag_nc & 0xffff) +
+         (static_cast<int64_t>(lseq) + 1) / 2 + lseq;
+}
+}  // namespace
+
+// Whole-record prefix of a BAM record stream: out = {its bytes, the rows
+// ssq_bam_reads makes of it: records with no flag of skip_mask and l_seq >
+// 0}.  A record cut by the end of src is left for the next call.  Returns
+// the prefix's records, or -1 on a malformed record.
+int64_t ssq_bam_whole(const uint8_t* src, int64_t n, uint16_t skip_mask,
+                      int64_t* out) {
+  int64_t off = 0, cnt = 0, rows = 0;
+  while (off + 4 <= n) {
+    uint32_t bs;
+    std::memcpy(&bs, src + off, 4);
+    if (bs < 32) return -1;
+    if (off + 4 + static_cast<int64_t>(bs) > n) break;
+    const uint8_t* r = src + off + 4;
+    int64_t core = record_core_bytes(r);
+    if (core < 0 || core > bs) return -1;
+    uint16_t flag;
+    int32_t lseq;
+    std::memcpy(&flag, r + 14, 2);
+    std::memcpy(&lseq, r + 16, 4);
+    if (!(flag & skip_mask) && lseq > 0) ++rows;
+    ++cnt;
+    off += 4 + bs;
+  }
+  out[0] = off;
+  out[1] = rows;
+  return cnt;
+}
+
+// The rows of the n bytes of whole records that ssq_bam_whole measured: each
+// record with no flag of skip_mask and l_seq > 0 becomes row k of seq and
+// qual (max_len bytes each): base codes A C G T = 0-3 and 4 for every other
+// code, and phred qualities, in the read's original orientation (a record
+// with a flag of turn_mask reverse-complemented, its qualities reversed), cut
+// to max_len after the turn and padded with 4 and 0.  Qualities all 0xff
+// (SAM's '*') read 30.  length[k]: the row's bases; flag[k]: the record's;
+// qname_off/len and rg_off/len: the spans in src of its name and of its RG:Z
+// value (rg_off -1 without one).  Writes at most cap rows and stops at a
+// malformed record; returns the rows written.
+int64_t ssq_bam_reads(const uint8_t* src, int64_t n, uint16_t skip_mask,
+                      uint16_t turn_mask, int64_t max_len, int64_t cap,
+                      uint8_t* seq, uint8_t* qual, int32_t* length,
+                      uint16_t* flag, int64_t* qname_off, int64_t* qname_len,
+                      int64_t* rg_off, int64_t* rg_len) {
+  // nt16 code -> read code, as the forward strand and as its complement
+  static const uint8_t kFwd[16] = {4, 0, 1, 4, 2, 4, 4, 4,
+                                   3, 4, 4, 4, 4, 4, 4, 4};
+  static const uint8_t kRev[16] = {4, 3, 2, 4, 1, 4, 4, 4,
+                                   0, 4, 4, 4, 4, 4, 4, 4};
+  int64_t off = 0, k = 0;
+  while (off + 4 <= n && k < cap) {
+    uint32_t bs;
+    std::memcpy(&bs, src + off, 4);
+    if (bs < 32 || off + 4 + static_cast<int64_t>(bs) > n) break;
+    const uint8_t* r = src + off + 4;
+    uint32_t bin_mq_nl, flag_nc;
+    int32_t lseq;
+    std::memcpy(&bin_mq_nl, r + 8, 4);
+    std::memcpy(&flag_nc, r + 12, 4);
+    std::memcpy(&lseq, r + 16, 4);
+    int64_t core = record_core_bytes(r);
+    if (core < 0 || core > bs) break;
+    const int64_t lqname = bin_mq_nl & 0xff;
+    const uint16_t f = static_cast<uint16_t>(flag_nc >> 16);
+    if ((f & skip_mask) || lseq == 0) {
+      off += 4 + bs;
+      continue;
+    }
+    const uint8_t* nib = r + 32 + lqname + 4 * (flag_nc & 0xffff);
+    const uint8_t* q = nib + (lseq + 1) / 2;
+    const int64_t L = lseq < max_len ? lseq : max_len;
+    uint8_t* srow = seq + k * max_len;
+    uint8_t* qrow = qual + k * max_len;
+    bool missing = true;
+    for (int32_t j = 0; j < lseq && missing; ++j) missing = q[j] == 0xff;
+    if (f & turn_mask) {
+      for (int64_t j = 0; j < L; ++j) {
+        const int64_t s = lseq - 1 - j;
+        srow[j] = kRev[(nib[s >> 1] >> ((s & 1) ? 0 : 4)) & 0xf];
+        qrow[j] = missing ? 30 : q[s];
+      }
+    } else {
+      for (int64_t j = 0; j < L; ++j) {
+        srow[j] = kFwd[(nib[j >> 1] >> ((j & 1) ? 0 : 4)) & 0xf];
+        qrow[j] = missing ? 30 : q[j];
+      }
+    }
+    std::memset(srow + L, 4, max_len - L);
+    std::memset(qrow + L, 0, max_len - L);
+    length[k] = static_cast<int32_t>(L);
+    flag[k] = f;
+    qname_off[k] = (r + 32) - src;
+    qname_len[k] = lqname - 1;
+    int64_t aux[2] = {(q + lseq) - src, off + 4 + static_cast<int64_t>(bs)};
+    ssq_find_ztag(src, aux, 1, 'R', 'G', rg_off + k, rg_len + k);
+    ++k;
+    off += 4 + bs;
+  }
+  return k;
+}
+
 }  // extern "C"

@@ -10,7 +10,16 @@ own decoder):
   across the lanes of a library, never across libraries;
 - the extract's spans and counters (``realign.extract.{decode,pair,
   pack}``, ``realign.{records,pairs,orphans,libraries}``) are in
-  ``metrics.snapshot()``, the counts the plain extraction's.
+  ``metrics.snapshot()``, the counts the plain extraction's;
+- the columnar stream: equal to the plain extraction with its chunk cut
+  to one BGZF block and to a size that cuts records across chunk edges
+  (lanes re-written in small BGZF blocks), each inflate a part of its
+  file (one block at a chunk of one byte), and no SAMRecord decoded; on records of every edge
+  (qualities all 0xff, IUPAC and ``=`` codes, reads longer than
+  ``max_len``, secondary, supplementary and sequence-less records, no RG,
+  the ``rg_ids`` filter) its batches equal the per-record extraction's
+  (``_per_record_batches``: SAMRecords through ``BAMReader``); with
+  reverse-strand rows left unturned it fails the plain comparison.
 
 The lanes: a random 3-contig genome, 176 pairs of 100 bp, a tenth of
 them copied (the copy's reads equal to its original's) into the same
@@ -23,9 +32,15 @@ import pytest
 import torch
 
 from benchmark.reference import realign_check as plain
+from speedseq_tpu_torch import native
+from speedseq_tpu_torch.align import realign as realign_mod
 from speedseq_tpu_torch.align.pipeline import AlignConfig, align_fastq
 from speedseq_tpu_torch.align.realign import iter_bam_pairs, realign
+from speedseq_tpu_torch.formats import bam as bam_mod
+from speedseq_tpu_torch.formats import bgzf
 from speedseq_tpu_torch.formats.bam import BAMReader, BAMWriter
+from speedseq_tpu_torch.formats.fasta import encode_bases
+from speedseq_tpu_torch.formats.sam import SAMHeader, SAMRecord
 from speedseq_tpu_torch.utils import synth
 from speedseq_tpu_torch.utils.metrics import metrics
 
@@ -193,3 +208,219 @@ def test_extract_counts_orphans(lanes):
     assert snap["realign.orphans"] == len(ext.orphans)
     assert snap["realign.records"] == ext.records
     assert snap["realign.pairs"] == len(ext.names)
+
+
+# --- the columnar stream ---------------------------------------------------
+
+SMALL_BLOCK = 1000     # payload bytes of the re-written lanes' BGZF blocks
+
+
+def _reblock(src: str, dst: str, payload: int = SMALL_BLOCK) -> None:
+    """``src`` re-written in BGZF blocks of ``payload`` inflated bytes, so
+    records straddle many block edges."""
+    with open(src, "rb") as fh:
+        raw = bgzf.decompress(fh.read())
+    with open(dst, "wb") as fh:
+        for i in range(0, len(raw), payload):
+            fh.write(bgzf._compress_block(raw[i:i + payload]))
+        fh.write(bgzf.BGZF_EOF)
+
+
+@pytest.fixture(scope="module")
+def small_blocks(lanes, tmp_path_factory):
+    d = tmp_path_factory.mktemp("small")
+    out = {}
+    for which in ("lanes", "orphans"):
+        out[which] = []
+        for j, p in enumerate(lanes[which]):
+            q = str(d / f"{which}{j}.bam")
+            _reblock(p, q)
+            out[which].append(q)
+    return out
+
+
+def _plain_diffs(paths, batch):
+    """Pairs, ends and orphans in which ``iter_bam_pairs`` differs from
+    the plain extraction."""
+    ext = plain.extract(paths)
+    got = _port_pairs(paths, batch)
+    pairs = [(nm, e) for nm, e in got if len(e) == 2]
+    single = sorted(nm for nm, e in got if len(e) == 1)
+    bad = abs(len(pairs) - len(ext.names)) + len(
+        set(single) ^ set(ext.orphans))
+    for (nm, ends), want_nm, want in zip(pairs, ext.names, ext.ends):
+        bad += nm != want_nm
+        for (seq, qual, comment), (s, q, rg) in zip(ends, want):
+            bad += not (np.array_equal(seq, s) and np.array_equal(qual, q)
+                        and comment == f"RG:{rg}")
+    return bad
+
+
+@pytest.mark.parametrize("which", ["lanes", "orphans"])
+@pytest.mark.parametrize("chunk", [1, 3000])
+def test_extract_matches_plain_at_chunk_edges(small_blocks, monkeypatch,
+                                              which, chunk):
+    """Chunk 1: every inflate is one block (a read of a byte at a time
+    completes one block at most); 3000 B: several blocks, records cut at
+    the chunk's end.  Either way an inflate holds a part of its file:
+    memory follows the chunk."""
+    monkeypatch.setattr(realign_mod, "CHUNK_BYTES", chunk)
+    sizes = []
+    inflate = native.bgzf_decompress
+
+    def counted(data, nthreads=None):
+        out = inflate(data, nthreads)
+        sizes.append(len(out))
+        return out
+    monkeypatch.setattr(native, "bgzf_decompress", counted)
+    metrics.reset()
+    assert _plain_diffs(small_blocks[which], 7) == 0
+    snap = metrics.snapshot()
+    paths = small_blocks[which]
+    assert snap["realign.extract.chunks"] == len(sizes) > 2 * len(paths)
+    assert snap["realign.extract.inflated_bytes"] == sum(sizes)
+    per_file = sum(sizes) / len(paths)
+    assert max(sizes) <= (SMALL_BLOCK if chunk == 1 else per_file / 2)
+    assert SMALL_BLOCK < per_file / 4
+
+
+@pytest.mark.parametrize("which", ["lanes", "orphans"])
+def test_extract_decodes_no_samrecord(lanes, monkeypatch, which):
+    def no_record(buf):
+        raise AssertionError("per-record decode on the extract's path")
+    monkeypatch.setattr(bam_mod, "decode_record", no_record)
+    assert _plain_diffs(lanes[which], BATCH) == 0
+
+
+def test_unturned_reverse_rows_fail_the_plain_comparison(lanes, monkeypatch):
+    """The planted fault: the orient step leaves reverse-strand rows as
+    stored."""
+    assert _plain_diffs(lanes["lanes"], BATCH) == 0
+    monkeypatch.setattr(realign_mod, "_TURN", 0)
+    assert _plain_diffs(lanes["lanes"], BATCH) > 0
+
+
+def _per_record_batches(paths, rg_ids, batch, max_len, rename):
+    """The extraction a SAMRecord at a time (``BAMReader``,
+    ``decode_record``), as the columnar stream replaced it: each batch as
+    (names, [ends of read 1], [ends of read 2] or None), an end (seq,
+    qual, comment)."""
+    def end(rec):
+        seq = encode_bases(rec.seq.encode())
+        qual = (np.full(len(seq), 30, np.uint8) if rec.qual == "*" else
+                np.frombuffer(rec.qual.encode(), np.uint8) - 33)
+        if rec.flag & 0x10:
+            seq = np.where(seq[::-1] < 4, 3 - seq[::-1], 4).astype(np.uint8)
+            qual = qual[::-1]
+        return seq[:max_len], qual[:max_len], f"RG:{rec.get_tag('RG') or ''}"
+
+    pending, ready = {}, []
+    for path in paths:
+        with BAMReader(path) as rd:
+            for rec in rd:
+                if rec.flag & 0x900 or rec.seq in ("*", ""):
+                    continue
+                if rg_ids is not None and (
+                        rec.get_tag("RG") or "") not in rg_ids:
+                    continue
+                mate = pending.pop(rec.qname, None)
+                if mate is None:
+                    pending[rec.qname] = rec
+                else:
+                    ready.append((rec.qname, *((rec, mate) if rec.flag & 0x40
+                                               else (mate, rec))))
+    out, k = [], 0
+    groups = [ready[i:i + batch] for i in range(0, len(ready), batch)] + [
+        [(q, r, None) for q, r in list(pending.items())[i:i + batch]]
+        for i in range(0, len(pending), batch)]
+    for g in groups:
+        names = [f"r{k + i}" if rename else q for i, (q, _, _) in
+                 enumerate(g)]
+        k += len(g)
+        out.append((names, [end(a) for _, a, _ in g],
+                    None if g[0][2] is None else [end(b) for _, _, b in g]))
+    return out
+
+
+def _edge_lanes(d, rng):
+    """Two BAMs of mates in random order (a pair's ends in either BAM):
+    bases mostly ACGT with IUPAC codes, ``=`` and lower case; lengths 1 to
+    220; a tenth with qualities ``*``; read groups A, B or none; secondary
+    and supplementary copies, records without a sequence, and orphans."""
+    hdr = SAMHeader(text="@HD\tVN:1.6\n@SQ\tSN:c1\tLN:5000\n"
+                         "@RG\tID:A\tSM:s\n@RG\tID:B\tSM:s\n",
+                    refs=[("c1", 5000)])
+    letters = np.array(list("ACGT" * 6 + "NRYKMSWBDHV=acgtn"))
+    recs = []
+
+    def rec(name, flag, rg):
+        n = int(rng.integers(1, 221))
+        seq = "".join(rng.choice(letters, n))
+        qual = "*" if rng.random() < 0.1 else "".join(
+            chr(33 + int(q)) for q in rng.integers(0, 61, n))
+        tags = [("NM", "i", 0)] + ([("RG", "Z", rg)] if rg else [])
+        return SAMRecord(name, flag, 0, int(rng.integers(0, 4000)), 60,
+                         [(0, n)], 0, 0, 0, seq, qual, tags)
+
+    for i in range(300):
+        rg = ["A", "B", None][int(rng.integers(0, 3))]
+        for first in (True, False):
+            if i % 37 == 5 and not first:      # an orphan
+                continue
+            flag = 0x1 | (0x40 if first else 0x80) | (
+                0x10 if rng.random() < 0.5 else 0)
+            recs.append(rec(f"q{i}", flag, rg))
+            if rng.random() < 0.06:
+                recs.append(rec(f"q{i}", flag | 0x100, rg))
+            if rng.random() < 0.04:
+                recs.append(rec(f"q{i}", flag | 0x800, rg))
+            if rng.random() < 0.03:
+                r = rec(f"q{i}", flag, rg)
+                r.seq, r.qual = "*", "*"
+                recs.append(r)
+    order = rng.permutation(len(recs))
+    paths = []
+    for j in range(2):
+        p, q = str(d / f"edge{j}.bam"), str(d / f"edge{j}.small.bam")
+        with BAMWriter(p, hdr) as w:
+            for k in order[j::2]:
+                w.write(recs[k])
+        _reblock(p, q)
+        paths.append(q)
+    return paths
+
+
+@pytest.fixture(scope="module")
+def edge_lanes(tmp_path_factory):
+    return _edge_lanes(tmp_path_factory.mktemp("edge"),
+                       np.random.default_rng(43))
+
+
+@pytest.mark.parametrize("rg_ids,max_len,batch,rename", [
+    (None, 151, 7, False), (None, 40, 64, True), ({"A"}, 151, 5, False),
+    ({"B", ""}, 151, 64, False), ({"A", "B"}, 97, 1000, True),
+    (set(), 151, 7, False)])
+def test_extract_edge_records_equal_per_record(edge_lanes, monkeypatch,
+                                               rg_ids, max_len, batch,
+                                               rename):
+    monkeypatch.setattr(realign_mod, "CHUNK_BYTES", 700)
+    want = _per_record_batches(edge_lanes, rg_ids, batch, max_len, rename)
+    got = list(iter_bam_pairs(edge_lanes, rg_ids, batch, max_len,
+                              rename=rename))
+    assert len(got) == len(want) and (rg_ids == set() or want)
+    for (b1, b2), (names, e1, e2) in zip(got, want):
+        assert (b2 is None) == (e2 is None)
+        for b, ends in ((b1, e1), (b2, e2)):
+            if b is None:
+                continue
+            assert b.names == names
+            assert b.seq.shape == b.qual.shape == (len(names), max_len)
+            assert b.seq.dtype == b.qual.dtype == np.uint8
+            assert b.length.dtype == np.int32
+            assert b.comments == [c for _, _, c in ends]
+            for i, (s, q, _) in enumerate(ends):
+                L = int(b.length[i])
+                assert L == len(s)
+                assert np.array_equal(b.seq[i, :L], s)
+                assert np.array_equal(b.qual[i, :L], q)
+                assert (b.seq[i, L:] == 4).all() and (b.qual[i, L:] == 0).all()
