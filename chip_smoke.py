@@ -888,11 +888,11 @@ def _ptxas_lines(info):
 # The main path's SW launches are 151 wide (align/core.py pads the reads by
 # one) against a 256-column window (_windows pads 254 to 256).  sw_score at
 # the mate rescue's 768 lanes x 151 x 256, beside it a width of 150 (x 256)
-# and a window that is no multiple of 4 (150 x 254); at score_mode="sw"
-# phase 1's 32,768 lanes.  sw_cigar at the main path's three launches, each
-# 151 x 256: extend_candidates (16,384 lanes), _extend_xa (1,024), the mate
-# rescue's extension (256); beside them the same lane counts at a width of
-# 150.
+# and a window that is no multiple of 4 (150 x 254); at 32,768 lanes (every
+# chain of an 8,192-read batch end).  sw_cigar at the main path's three
+# launches, each 151 x 256: extend_candidates (16,384 lanes), _extend_xa
+# (1,024), the mate rescue's extension (256); beside them the same lane
+# counts at a width of 150.
 SW_AGAINST = (("sw_score", 768, 151, 256), ("sw_score", 768, 150, 256),
               ("sw_score", 768, 150, 254), ("sw_score", 32768, 151, 256),
               ("sw_cigar", 16384, 151, 256), ("sw_cigar", 1024, 151, 256),

@@ -2,12 +2,13 @@
 SW extension (+ mate rescue, extra XA placements) → packed outputs.
 
 Counterpart of speedseq_tpu/align/core.py.  Plain functions on tensors;
-every tensor of a call lies on one device.  Phase 1 seeds either from the
-hash k-mer index (``kidx`` given, the default path: seeding and chaining of
-both ends in one launch of ops/seed_chain.py's kernel) or by SMEM search on
-the FMD index (``kidx=None``, ``seed_mode="fm"``: the ``fm_smem`` and
-``fm_sa_walk`` kernels of ops/fm_search.py); the two banded
-Smith-Waterman kernels (ops/sw_banded.py) do the DP.  The host side (numpy
+every tensor of a call lies on one device.  Phase 1
+(``weight_candidates``) seeds either from the hash k-mer index (``kidx``
+given, the default path: seeding and chaining of both ends in one launch
+of ops/seed_chain.py's kernel) or by SMEM search on the FMD index
+(``kidx=None``, ``seed_mode="fm"``: the ``fm_smem`` and ``fm_sa_walk``
+kernels of ops/fm_search.py); the two banded Smith-Waterman kernels
+(ops/sw_banded.py) do the DP.  The host side (numpy
 unpacking, MAPQ) is unchanged.
 
 The unfused alignment API is here too: ``align_candidates`` (SMEM seeds,
@@ -113,21 +114,6 @@ def _window_start(anchor_rpos, anchor_qpos):
     return ((anchor_rpos - anchor_qpos - PAD) >> 4) << 4
 
 
-def _chains(fm: FMIndex, reads, lengths, n_chains, stride, min_seed_len,
-            max_hits, kidx):
-    """Seed and chain: hash seeds + NMS chaining when ``kidx`` is given
-    (ops/seed_chain.py), else SMEM seeds on the FMD index + the sorting
-    chainer."""
-    L = reads.shape[1]
-    if kidx is not None:
-        return seed_chain(kidx, [(reads, lengths)], k=min_seed_len,
-                          stride=stride, max_hits=max_hits,
-                          n_chains=n_chains)[0][0]
-    seeds = find_seeds(fm, reads, lengths, stride=stride,
-                       min_seed_len=min_seed_len, max_hits=max_hits)
-    return chain_seeds(seeds, L, k=n_chains)
-
-
 def align_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
                      stride: int = 8, min_seed_len: int = 19,
                      max_hits: int = 4, params: SWParams = SWParams()
@@ -169,22 +155,31 @@ def align_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
     )
 
 
-def weight_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
-                      stride: int = 8, min_seed_len: int = 19,
-                      max_hits: int = 4, kidx: KmerIndex = None
-                      ) -> ScoredChains:
-    """Phase 1 without any DP: chain weight (exact-match query coverage) is
-    the selection score; the selected slots get real scores and cigars from
-    the single extension pass."""
+def weight_candidates(fm: FMIndex, ends, kidx: KmerIndex = None,
+                      n_chains: int = 4, stride: int = 8,
+                      min_seed_len: int = 19, max_hits: int = 4) -> list:
+    """Phase 1 of each (reads, lengths) end of ``ends``, without any DP:
+    chain weight (exact-match query coverage) is the selection score; the
+    selected slots get real scores and cigars from the single extension
+    pass.  With ``kidx``, one seed_chain call for all ends (one launch on
+    cuda), whose chains' weight is already 0 where a chain is not valid;
+    else, an end at a time, SMEM seeds on the FMD index and the sorting
+    chainer.  Returns one ScoredChains an end."""
     if kidx is not None:
-        return _hash_weight_candidates(kidx, [(reads, lengths)], n_chains,
-                                       stride, min_seed_len, max_hits)[0]
-    reads = reads.to(i32)
-    chains = _chains(fm, reads, lengths, n_chains, stride, min_seed_len,
-                     max_hits, kidx)
-    diag = chains.anchor_rpos - chains.anchor_qpos
-    return _weighted(chains, diag + chains.qspan_beg, diag + chains.qspan_end,
-                     torch.where(chains.valid, chains.weight, 0))
+        return [_weighted(ch, pos, rend, ch.weight) for ch, pos, rend in
+                seed_chain(kidx, ends, k=min_seed_len, stride=stride,
+                           max_hits=max_hits, n_chains=n_chains)]
+    out = []
+    for reads, lengths in ends:
+        reads = reads.to(i32)
+        seeds = find_seeds(fm, reads, lengths, stride=stride,
+                           min_seed_len=min_seed_len, max_hits=max_hits)
+        chains = chain_seeds(seeds, reads.shape[1], k=n_chains)
+        diag = chains.anchor_rpos - chains.anchor_qpos
+        out.append(_weighted(chains, diag + chains.qspan_beg,
+                             diag + chains.qspan_end,
+                             torch.where(chains.valid, chains.weight, 0)))
+    return out
 
 
 def _weighted(chains, pos, rend_pos, score) -> ScoredChains:
@@ -198,52 +193,6 @@ def _weighted(chains, pos, rend_pos, score) -> ScoredChains:
         qspan_beg=chains.qspan_beg,
         qspan_end=chains.qspan_end,
         qend=chains.qspan_end,
-        valid=chains.valid,
-    )
-
-
-def _hash_weight_candidates(kidx: KmerIndex, ends, n_chains, stride,
-                            min_seed_len, max_hits) -> list:
-    """weight_candidates of each (reads, lengths) end on the hash path: one
-    seed_chain call for all ends (one launch on cuda).  The chains' weight
-    is already 0 where a chain is not valid, so it is the score as it is."""
-    return [_weighted(ch, pos, rend, ch.weight) for ch, pos, rend in
-            seed_chain(kidx, ends, k=min_seed_len, stride=stride,
-                       max_hits=max_hits, n_chains=n_chains)]
-
-
-def score_candidates(fm: FMIndex, reads, lengths, n_chains: int = 4,
-                     stride: int = 8, min_seed_len: int = 19,
-                     max_hits: int = 4, params: SWParams = SWParams(),
-                     kidx: KmerIndex = None) -> ScoredChains:
-    """Phase 1 with DP (score_mode="sw"): seed → chain → score-only banded
-    SW over all K chains per read."""
-    B, L = reads.shape
-    reads = reads.to(i32)
-    chains = _chains(fm, reads, lengths, n_chains, stride, min_seed_len,
-                     max_hits, kidx)
-    K = n_chains
-    W = L + 2 * PAD + 16
-    strand = chains.strand
-    queries = _strand_queries(reads, lengths, strand)
-    rstart = _window_start(chains.anchor_rpos, chains.anchor_qpos)
-    _, refp = _windows(fm, rstart, W)
-    qlen = lengths.to(i32)[:, None].expand(B, K).reshape(-1)
-    sw = banded_sw_score_pallas(queries, qlen, refp, params=params)
-    score = torch.where(chains.valid.reshape(-1), sw.score, 0).reshape(B, K)
-    rend_pos = (rstart.reshape(-1) + sw.rend).reshape(B, K)
-    span = torch.minimum(sw.qend, sw.rend)  # crude aligned-span floor
-    pos_est = rend_pos - span.reshape(B, K)
-    return ScoredChains(
-        pos=torch.maximum(pos_est, rstart),
-        rend_pos=rend_pos,
-        strand=strand,
-        score=score,
-        anchor_rpos=chains.anchor_rpos,
-        anchor_qpos=chains.anchor_qpos,
-        qspan_beg=chains.qspan_beg,
-        qspan_end=chains.qspan_end,
-        qend=sw.qend.reshape(B, K),
         valid=chains.valid,
     )
 
@@ -415,6 +364,19 @@ def _scatter_live(dst: torch.Tensor, rows: torch.Tensor, accept: torch.Tensor,
     return out[:B]
 
 
+def _first_live(mask: torch.Tensor, n: int):
+    """(idx, live): the indices of the first ``n`` set entries of the 1-D
+    ``mask`` (n,) int64, and which of the n slots hold one; a cumsum
+    scatter without a host sync (slot n is the dump slot, and an empty
+    slot's index is 0)."""
+    dev = mask.device
+    csum = torch.cumsum(mask.to(i32), 0) - 1
+    slot = torch.where(mask & (csum < n), csum, n).long()
+    idx = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    idx[slot] = torch.arange(mask.shape[0], device=dev)
+    return idx[:n], torch.arange(n, device=dev) < mask.sum()
+
+
 def _mate_rescue(fm: FMIndex, cand: Candidates, sc_self: ScoredChains,
                  sc_other: ScoredChains, k_other, reads, lengths,
                  distro: torch.Tensor, params: SWParams,
@@ -433,14 +395,7 @@ def _mate_rescue(fm: FMIndex, cand: Candidates, sc_self: ScoredChains,
     mate_rend = sc_other.rend_pos[bidx, k_other]
     mate_strand = sc_other.strand[bidx, k_other]
     mate_ok = sc_other.score[bidx, k_other] > 0
-    mask = fail & mate_ok
-    # first-R compaction via a cumsum scatter (slot R is the dump slot)
-    csum = torch.cumsum(mask.to(i32), 0) - 1
-    slot = torch.where(mask & (csum < R), csum, R).long()
-    idxs = torch.zeros(R + 1, dtype=torch.int64, device=dev)
-    idxs[slot] = bidx
-    idxs = idxs[:R]
-    live = torch.arange(R, device=dev) < mask.sum()
+    idxs, live = _first_live(fail & mate_ok, R)
     qlen_r = lengths.to(i32)[idxs]
     low, high = distro[2].to(i32), distro[3].to(i32)
     mp, mr, ms = mate_pos[idxs], mate_rend[idxs], mate_strand[idxs]
@@ -506,15 +461,8 @@ def _extend_xa(fm: FMIndex, sc: ScoredChains, xa_mask, reads, lengths,
     """Compacted extension of extra XA chains into C = B//8 lanes (first-fit,
     overflow chains dropped)."""
     B, K = xa_mask.shape
-    dev = reads.device
     C = max(8, B // 8)
-    flat = xa_mask.reshape(-1)
-    csum = torch.cumsum(flat.to(i32), 0) - 1
-    slot = torch.where(flat & (csum < C), csum, C).long()
-    src = torch.zeros(C + 1, dtype=torch.int64, device=dev)
-    src[slot] = torch.arange(B * K, device=dev)
-    src = src[:C]
-    live = torch.arange(C, device=dev) < torch.clamp_max(flat.sum(), C)
+    src, live = _first_live(xa_mask.reshape(-1), C)
     rd, ch = src // K, src % K
     resc = extend_candidates(
         fm, reads[rd], lengths[rd], sc.anchor_rpos[rd, ch][:, None],
@@ -606,31 +554,17 @@ def fused_align_step(fm: FMIndex, reads1, lengths1, reads2=None,
                      n_chains: int = 4, stride: int = 8,
                      min_seed_len: int = 19, max_hits: int = 4,
                      params: SWParams = SWParams(), paired: bool = True,
-                     kidx: KmerIndex = None, score_mode: str = "weight"):
+                     kidx: KmerIndex = None):
     """One device step: phase-1 scoring for both ends, joint pair
     selection, split detection, extension, mate rescue and XA extension.
     Returns per end (Candidates, sub, sub_n, ScoredChains, XACompact)."""
-    kw = dict(n_chains=n_chains, stride=stride, min_seed_len=min_seed_len,
-              max_hits=max_hits, kidx=kidx)
-    if score_mode == "weight":
-        phase1 = weight_candidates
-    elif score_mode == "sw":
-        phase1 = score_candidates
-        kw["params"] = params
-    else:
-        raise ValueError(f"unknown score_mode {score_mode!r}")
     both = paired and reads2 is not None
+    ends = [(reads1, lengths1)] + ([(reads2, lengths2)] if both else [])
     with _stage("seed_chain"):
-        if score_mode == "weight" and kidx is not None:
-            # both ends through one seed_chain launch
-            ends = [(reads1, lengths1)] + ([(reads2, lengths2)] if both
-                                           else [])
-            scs = _hash_weight_candidates(kidx, ends, n_chains, stride,
-                                          min_seed_len, max_hits)
-            sc1, sc2 = scs[0], (scs[1] if both else None)
-        else:
-            sc1 = phase1(fm, reads1, lengths1, **kw)
-            sc2 = phase1(fm, reads2, lengths2, **kw) if both else None
+        scs = weight_candidates(fm, ends, kidx, n_chains=n_chains,
+                                stride=stride, min_seed_len=min_seed_len,
+                                max_hits=max_hits)
+    sc1, sc2 = scs[0], (scs[1] if both else None)
     k1 = k2 = None
     if sc2 is not None:
         with _stage("select"):

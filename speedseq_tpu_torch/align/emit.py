@@ -10,7 +10,7 @@ per-record quantity (flags, coordinates, tlen, MAPQ, NM, cigars, aux blobs,
 seq/qual bytes) is computed as a numpy column over the whole batch, and the
 native runtime (csrc/ssq_native.cc) assembles cigar strings, aux blobs, and
 encoded records in single C calls.  Rare variable-content records (SA/XA
-tags) fall back to tiny per-row loops over just the affected rows.
+tags) take tiny per-row loops over just the affected rows.
 
 Output tag deviations from round-2's record path (both closer to bwa):
 - MD is not emitted (bwa mem emits no MD; samtools calmd adds it);
@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..formats.sam import (
     FDUP, FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR, FREAD1, FREAD2,
     FREVERSE, FSUPPLEMENTARY, FUNMAP,
@@ -33,15 +34,6 @@ from .core import mapq_vec
 
 _ABSENT = np.int32(-2**31)  # shared sentinel with native.build_aux
 _BASE_CHARS = np.frombuffer(b"ACGTN", dtype=np.uint8)
-_CIG_OPS = "MIDNSHP=XB"
-
-
-def _native():
-    try:
-        from .. import native as _n
-    except Exception:
-        return None
-    return _n if _n.available() else None
 
 
 # ------------------------------------------------------------ blob helpers
@@ -79,77 +71,17 @@ def _concat_blobs(parts: List[Tuple[np.ndarray, np.ndarray]]):
 
 
 def _cigar_strings(blob: np.ndarray, off: np.ndarray):
-    n = _native()
-    if n is not None:
-        return n.cigar_strings(np.ascontiguousarray(blob, np.uint32),
-                               np.ascontiguousarray(off, np.int64))
-    # pure-Python fallback
-    out = []
-    out_off = np.zeros(len(off), np.int64)
-    for i in range(len(off) - 1):
-        s = "".join(
-            f"{int(v) >> 4}{_CIG_OPS[int(v) & 0xF]}"
-            for v in blob[off[i]:off[i + 1]]
-        )
-        out.append(s.encode())
-        out_off[i + 1] = out_off[i] + len(out[-1])
-    joined = b"".join(out)
-    return np.frombuffer(joined, np.uint8) if joined else np.zeros(0, np.uint8), out_off
-
-
-def _py_int_tag(t: bytes, v: int) -> bytes:
-    import struct
-
-    if v < 0:
-        if v >= -128:
-            return t + b"c" + struct.pack("<b", v)
-        if v >= -32768:
-            return t + b"s" + struct.pack("<h", v)
-        return t + b"i" + struct.pack("<i", v)
-    if v <= 255:
-        return t + b"C" + struct.pack("<B", v)
-    if v <= 65535:
-        return t + b"S" + struct.pack("<H", v)
-    return t + b"I" + struct.pack("<I", v)
+    return native.cigar_strings(np.ascontiguousarray(blob, np.uint32),
+                                np.ascontiguousarray(off, np.int64))
 
 
 def _build_aux(nm, as_, xs, mq, rg_idx, rg_blob, rg_off, mc_blob, mc_off,
                extra_blob, extra_off):
-    n = _native()
-    args = [np.ascontiguousarray(a, np.int32) for a in (nm, as_, xs, mq, rg_idx)]
+    ints = [np.ascontiguousarray(a, np.int32) for a in (nm, as_, xs, mq, rg_idx)]
     bufs = [np.ascontiguousarray(b, np.uint8) for b in (rg_blob, mc_blob, extra_blob)]
     offs = [np.ascontiguousarray(o, np.int64) for o in (rg_off, mc_off, extra_off)]
-    if n is not None:
-        return n.build_aux(args[0], args[1], args[2], args[3], args[4],
-                           bufs[0], offs[0], bufs[1], offs[1], bufs[2], offs[2])
-    # fallback: per-record Python assembly (same bytes)
-    out = []
-    out_off = np.zeros(len(nm) + 1, np.int64)
-    rgb = bufs[0].tobytes()
-    mcb = bufs[1].tobytes()
-    exb = bufs[2].tobytes()
-    for i in range(len(nm)):
-        parts = b""
-        if nm[i] != _ABSENT:
-            parts += _py_int_tag(b"NM", int(nm[i]))
-        if as_[i] != _ABSENT:
-            parts += _py_int_tag(b"AS", int(as_[i]))
-        if xs[i] != _ABSENT:
-            parts += _py_int_tag(b"XS", int(xs[i]))
-        r0, r1 = int(rg_off[rg_idx[i]]), int(rg_off[rg_idx[i] + 1])
-        if r1 > r0:
-            parts += b"RGZ" + rgb[r0:r1] + b"\x00"
-        m0, m1 = int(mc_off[i]), int(mc_off[i + 1])
-        if m1 > m0:
-            parts += b"MCZ" + mcb[m0:m1] + b"\x00"
-        if mq[i] != _ABSENT:
-            parts += _py_int_tag(b"MQ", int(mq[i]))
-        parts += exb[int(extra_off[i]):int(extra_off[i + 1])]
-        out.append(parts)
-        out_off[i + 1] = out_off[i] + len(parts)
-    joined = b"".join(out)
-    return (np.frombuffer(joined, np.uint8).copy() if joined
-            else np.zeros(0, np.uint8)), out_off
+    return native.build_aux(*ints, bufs[0], offs[0], bufs[1], offs[1],
+                            bufs[2], offs[2])
 
 
 # --------------------------------------------------------- record columns
@@ -175,8 +107,6 @@ class RecordColumns:
         return packed_keys(self.tid, self.pos, self.flag.astype(np.int64))
 
     def to_bam_columns(self):
-        from .. import native
-
         return native.BamColumns(
             tid=np.ascontiguousarray(self.tid, np.int32),
             pos=np.ascontiguousarray(self.pos, np.int32),
@@ -249,11 +179,8 @@ class RecordColumns:
 
     def encode(self) -> bytes:
         """Concatenated block_size-prefixed BAM records (native batch
-        encode; Python struct fallback, byte-identical)."""
-        n = _native()
-        if n is not None:
-            return n.bam_encode(self.to_bam_columns())
-        return _py_encode_columns(self)
+        encode)."""
+        return native.bam_encode(self.to_bam_columns())
 
 
 def _empty_columns() -> RecordColumns:
@@ -267,41 +194,6 @@ def _empty_columns() -> RecordColumns:
         seq_off=np.zeros(1, np.int64), aux_blob=np.zeros(0, np.uint8),
         aux_off=np.zeros(1, np.int64),
     )
-
-
-def _py_encode_columns(c: RecordColumns) -> bytes:
-    """Pure-Python columnar encode (bam_write1 layout, sam.h:148-181)."""
-    import struct
-
-    from ..formats.bam import reg2bin
-
-    nt16 = np.full(256, 15, np.uint8)
-    for i, ch in enumerate(b"=ACMGRSVTWYHKDBN"):
-        nt16[ch] = i
-        nt16[ch + 32] = i  # lowercase
-    out = []
-    for i in range(c.n):
-        q0, q1 = int(c.qname_off[i]), int(c.qname_off[i + 1])
-        g0, g1 = int(c.cigar_off[i]), int(c.cigar_off[i + 1])
-        s0, s1 = int(c.seq_off[i]), int(c.seq_off[i + 1])
-        a0, a1 = int(c.aux_off[i]), int(c.aux_off[i + 1])
-        lseq = s1 - s0
-        bin_ = reg2bin(int(c.pos[i]), int(c.ref_end[i]))
-        core = struct.pack(
-            "<iiBBHHHiiii", int(c.tid[i]), int(c.pos[i]), q1 - q0 + 1,
-            int(c.mapq[i]), bin_, g1 - g0, int(c.flag[i]), lseq,
-            int(c.mtid[i]), int(c.mpos[i]), int(c.tlen[i]))
-        codes = nt16[c.seq_blob[s0:s1]]
-        packed = np.zeros((lseq + 1) // 2, np.uint8)
-        packed |= codes[0::2] << 4
-        if lseq > 1:
-            packed[: lseq // 2] |= codes[1::2]
-        body = (core + c.qname_blob[q0:q1].tobytes() + b"\x00"
-                + c.cigar_blob[g0:g1].astype("<u4").tobytes()
-                + packed.tobytes() + c.qual_blob[s0:s1].tobytes()
-                + c.aux_blob[a0:a1].tobytes())
-        out.append(struct.pack("<I", len(body)) + body)
-    return b"".join(out)
 
 
 # ------------------------------------------------------------ end columns

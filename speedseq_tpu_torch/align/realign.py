@@ -235,9 +235,6 @@ def iter_bam_pairs(
     mate never came), ``realign.pending_peak`` (the most reads held
     waiting for their mates), and ``realign.extract.chunks`` and
     ``.inflated_bytes``."""
-    if not native.available():
-        raise RuntimeError("realign's extract needs the native runtime "
-                           "(g++ and zlib)")
     store = _Store(max_len)
     rg_table: Dict[bytes, int] = {}
     comment: List[str] = []

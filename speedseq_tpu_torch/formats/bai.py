@@ -12,8 +12,10 @@ import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from .bam import BAMReader, reg2bin
-from .sam import FUNMAP, cigar_ref_len
+import numpy as np
+
+from .. import native
+from .sam import FUNMAP
 
 BAI_MAGIC = b"BAI\x01"
 PSEUDO_BIN = 37450  # bin for meta chunk (hts.c idx meta)
@@ -29,99 +31,8 @@ class _RefIndex:
     off_beg: int = -1
     off_end: int = -1
 
-    def add(self, beg: int, end: int, voff_beg: int, voff_end: int, mapped: bool):
-        b = reg2bin(beg, end)
-        self.bins.setdefault(b, [])
-        chunks = self.bins[b]
-        if chunks and chunks[-1][1] == voff_beg:
-            chunks[-1] = (chunks[-1][0], voff_end)
-        else:
-            chunks.append((voff_beg, voff_end))
-        wbeg, wend = beg >> LINEAR_SHIFT, (end - 1) >> LINEAR_SHIFT
-        while len(self.linear) <= wend:
-            self.linear.append(0)
-        for w in range(wbeg, wend + 1):
-            if self.linear[w] == 0:
-                self.linear[w] = voff_beg
-        if self.off_beg < 0:
-            self.off_beg = voff_beg
-        self.off_end = voff_end
-        if mapped:
-            self.n_mapped += 1
-        else:
-            self.n_unmapped += 1
-
-
-def build_bai(bam_path: str, bai_path: Optional[str] = None) -> str:
-    """Build a .bai for a coordinate-sorted BAM (sambamba/samtools index
-    equivalent; invoked by the reference at bin/speedseq:491-495).
-
-    Columnar fast path when the native codec is available (one BGZF
-    block-table scan + one record decode + vectorized voff/bin math,
-    byte-identical output); per-record fallback otherwise."""
-    bai_path = bai_path or bam_path + ".bai"
-    try:
-        from .. import native
-
-        if native.available():
-            return _build_bai_columnar(bam_path, bai_path)
-    except Exception:
-        pass
-    with BAMReader(bam_path) as rd:
-        n_ref = len(rd.header.refs)
-        refs = [_RefIndex() for _ in range(n_ref)]
-        n_no_coor = 0
-        while True:
-            item = rd.read_raw()
-            if item is None:
-                end_voff = rd._r.tell_virtual
-                break
-            buf, voff = item
-            tid, pos = struct.unpack_from("<ii", buf, 0)
-            flag = struct.unpack_from("<H", buf, 14)[0]
-            n_cigar = struct.unpack_from("<H", buf, 12)[0]
-            voff_end = rd._r.tell_virtual
-            if tid < 0 or pos < 0:
-                n_no_coor += 1
-                continue
-            l_qname = buf[8]
-            rl = 0
-            for v in struct.unpack_from(f"<{n_cigar}I", buf, 32 + l_qname):
-                op = v & 0xF
-                if op in (0, 2, 3, 7, 8):
-                    rl += v >> 4
-            end = pos + (rl if rl else 1)
-            refs[tid].add(pos, end, voff, voff_end, not (flag & FUNMAP))
-    out = bytearray(BAI_MAGIC + struct.pack("<i", n_ref))
-    for ri in refs:
-        n_bin = len(ri.bins) + (1 if ri.n_mapped + ri.n_unmapped > 0 else 0)
-        out += struct.pack("<i", n_bin)
-        for b in sorted(ri.bins):
-            chunks = ri.bins[b]
-            out += struct.pack("<Ii", b, len(chunks))
-            for cb, ce in chunks:
-                out += struct.pack("<QQ", cb, ce)
-        if ri.n_mapped + ri.n_unmapped > 0:
-            out += struct.pack("<Ii", PSEUDO_BIN, 2)
-            out += struct.pack("<QQ", ri.off_beg, ri.off_end)
-            out += struct.pack("<QQ", ri.n_mapped, ri.n_unmapped)
-        out += struct.pack("<i", len(ri.linear))
-        # fill linear-index holes with previous offset (hts.c idx_save)
-        prev = 0
-        for w in ri.linear:
-            if w == 0:
-                w = prev
-            prev = w
-            out += struct.pack("<Q", w)
-    out += struct.pack("<Q", n_no_coor)
-    with open(bai_path, "wb") as fh:
-        fh.write(out)
-    return bai_path
-
 
 def _reg2bin_vec(beg, end):
-    import numpy as np
-
     e = end - 1
     out = np.zeros(len(beg), np.int64)
     done = np.zeros(len(beg), bool)
@@ -132,16 +43,17 @@ def _reg2bin_vec(beg, end):
     return out
 
 
-def _build_bai_columnar(bam_path: str, bai_path: str) -> str:
-    """Vectorized twin of the record-loop builder (same bytes): block
-    table → per-record virtual offsets by searchsorted; bins/ref-ends as
-    columns; only the per-record chunk-merge walk stays Python (plain
-    int ops)."""
-    import numpy as np
+def build_bai(bam_path: str, bai_path: Optional[str] = None) -> str:
+    """Build a .bai for a coordinate-sorted BAM (sambamba/samtools index
+    equivalent; invoked by the reference at bin/speedseq:491-495).
 
-    from .. import native
-    from ..sv.columnar import read_bam_columns, record_sizes
+    Columnar: one BGZF block-table scan + one record decode, then
+    per-record virtual offsets by searchsorted and bins/ref-ends as
+    columns; only the per-record chunk-merge walk stays Python (plain int
+    ops).  The offsets are those a BGZFReader reports record by record."""
+    from ..sv.columnar import cigar_ref_lengths, read_bam_columns, record_sizes
 
+    bai_path = bai_path or bam_path + ".bai"
     with open(bam_path, "rb") as fh:
         data = fh.read()
     co, isz = native.bgzf_block_table(data)
@@ -162,8 +74,6 @@ def _build_bai_columnar(bam_path: str, bai_path: str) -> str:
     voff_beg = (co[bb] << 16) | (starts - ublock[bb])
     be = np.searchsorted(ublock, ends_b - 1, side="right") - 1
     voff_end = (co[be] << 16) | (ends_b - ublock[be])
-
-    from ..sv.columnar import cigar_ref_lengths
 
     rl = cigar_ref_lengths(cols)
     pos = cols.pos.astype(np.int64)

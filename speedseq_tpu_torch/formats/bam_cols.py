@@ -3,33 +3,23 @@
 The hot emission path of the align pipeline encodes thousands of records per
 batch; the native runtime (csrc/ssq_native.cc ssq_bam_encode/ssq_bam_decode,
 bam_write1/bam_read1 equivalents per htslib sam.c:407,443) does that in one
-C call over struct-of-arrays.  This module builds those arrays and falls
-back to the per-record Python codec when the native library is unavailable.
-Outputs are byte-identical either way.
+C call over struct-of-arrays.  This module builds those arrays; the
+output is byte-identical to looping ``encode_record``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
-from .bam import _encode_aux, encode_record
+from .. import native
+from .bam import _encode_aux
 from .sam import SAMRecord, cigar_ref_len
-
-
-def _native():
-    try:
-        from .. import native as _n
-    except Exception:
-        return None
-    return _n if _n.available() else None
 
 
 def records_to_columns(records: List[SAMRecord]):
     """Build BamColumns from SAMRecord objects (native encode input)."""
-    from .. import native
-
     n = len(records)
     tid = np.empty(n, np.int32)
     pos = np.empty(n, np.int32)
@@ -93,14 +83,6 @@ def records_to_columns(records: List[SAMRecord]):
 def encode_batch(records: List[SAMRecord]) -> bytes:
     """Concatenated block_size-prefixed records, byte-equal to looping
     struct.pack(len)+encode_record."""
-    n = _native()
-    if n is not None and records:
-        return n.bam_encode(records_to_columns(records))
-    import struct
-
-    parts = []
-    for r in records:
-        buf = encode_record(r)
-        parts.append(struct.pack("<I", len(buf)))
-        parts.append(buf)
-    return b"".join(parts)
+    if not records:
+        return b""
+    return native.bam_encode(records_to_columns(records))

@@ -41,33 +41,24 @@ def filter_read_groups(
 
     new_header = SAMHeader(text="\n".join(lines) + "\n", refs=header.refs)
 
-    if native.available():
-        from ..sv.columnar import (
-            read_bam_columns, record_sizes, unique_ztag_values,
-        )
+    from ..sv.columnar import (
+        read_bam_columns, record_sizes, unique_ztag_values,
+    )
 
-        refs, cols, blob = read_bam_columns(in_bam, with_blob=True)
-        keep = np.full(cols.n, "" in keep_set, bool)  # tag-less records
-        rows, uniqs, inv = unique_ztag_values(cols, "RG")
-        if len(rows):
-            ok = np.array([u in keep_set for u in uniqs], bool)
-            keep[rows] = ok[inv]
-        sizes = record_sizes(cols)
-        starts = np.zeros(cols.n, np.int64)
-        np.cumsum(sizes[:-1], out=starts[1:])
-        sel = np.nonzero(keep)[0]
-        with BAMWriter(out_bam, new_header) as w:
-            w.write_blob(native.gather_records(
-                blob, starts, sizes, sel).tobytes())
-        return len(sel)
-
-    n = 0
-    with BAMReader(in_bam) as rd, BAMWriter(out_bam, new_header) as w:
-        for rec in rd:
-            if (rec.get_tag("RG") or "") in keep_set:
-                w.write(rec)
-                n += 1
-    return n
+    refs, cols, blob = read_bam_columns(in_bam, with_blob=True)
+    keep = np.full(cols.n, "" in keep_set, bool)  # tag-less records
+    rows, uniqs, inv = unique_ztag_values(cols, "RG")
+    if len(rows):
+        ok = np.array([u in keep_set for u in uniqs], bool)
+        keep[rows] = ok[inv]
+    sizes = record_sizes(cols)
+    starts = np.zeros(cols.n, np.int64)
+    np.cumsum(sizes[:-1], out=starts[1:])
+    sel = np.nonzero(keep)[0]
+    with BAMWriter(out_bam, new_header) as w:
+        w.write_blob(native.gather_records(
+            blob, starts, sizes, sel).tobytes())
+    return len(sel)
 
 
 _NAT = re.compile(r"(\d+)")

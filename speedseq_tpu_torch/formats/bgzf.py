@@ -14,8 +14,9 @@ htslib/bgzf.h):
   the block's compressed start offset and ``uoffset`` the offset within the
   uncompressed block (htslib/bgzf.h:187).
 
-The writer emits one deflate stream per block via zlib with raw deflate
-(wbits=-15), mirroring ``bgzf_compress``.
+The writer emits one deflate stream per block with raw deflate
+(wbits=-15), mirroring ``bgzf_compress``: whole blocks through the native
+runtime's thread pool, the tail block through zlib here.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import struct
 import zlib
 from dataclasses import dataclass
 from typing import BinaryIO, Iterator, List, Tuple
+
+from .. import native
 
 BGZF_BLOCK_SIZE = 0xFF00  # 65280, htslib/bgzf.h:43
 _BGZF_HEADER = (
@@ -37,17 +40,6 @@ _BGZF_HEADER = (
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000"
 )
-
-
-def _native():
-    """csrc/ssq_native.cc bindings (bgzf_mt-equivalent thread-pool codec),
-    or None when the toolchain is unavailable.  Byte-output is identical to
-    this module's pure-Python path either way."""
-    try:
-        from .. import native as _n
-    except Exception:
-        return None
-    return _n if _n.available() else None
 
 
 def _compress_block(data: bytes, level: int = 6) -> bytes:
@@ -72,13 +64,16 @@ def _compress_block(data: bytes, level: int = 6) -> bytes:
 class BGZFWriter:
     """Streaming BGZF writer with htslib block-boundary semantics.
 
-    When the native runtime (csrc/ssq_native.cc) is available, complete
-    65280-byte blocks are accumulated and deflated in one multithreaded
-    call (htslib bgzf_mt equivalent, bgzf.c:781-812).  The block split —
-    and therefore the output bytes — is identical to the sequential path.
+    Complete 65280-byte blocks are accumulated and deflated in one
+    multithreaded native call (csrc/ssq_native.cc, htslib bgzf_mt
+    equivalent, bgzf.c:781-812); the block split, and therefore the output
+    bytes, is that of compressing one block at a time.
     """
 
     def __init__(self, fileobj_or_path, level: int = 6):
+        # the runtime loads before the file opens: a failed build leaves
+        # no output behind
+        native.load()
         if isinstance(fileobj_or_path, (str, bytes)):
             self._fh: BinaryIO = open(fileobj_or_path, "wb")
             self._owns = True
@@ -89,9 +84,6 @@ class BGZFWriter:
         self._coffset = 0  # compressed bytes emitted so far
         self.level = level
         self._closed = False
-        self._native = _native()
-        # batch whole blocks before compressing (native path only)
-        self._batch_bytes = (64 * BGZF_BLOCK_SIZE) if self._native else BGZF_BLOCK_SIZE
 
     @property
     def tell_virtual(self) -> int:
@@ -101,7 +93,7 @@ class BGZFWriter:
 
     def write(self, data: bytes) -> int:
         self._buf.extend(data)
-        if len(self._buf) >= self._batch_bytes:
+        if len(self._buf) >= 64 * BGZF_BLOCK_SIZE:
             self._drain_full_blocks()
         return len(data)
 
@@ -114,15 +106,11 @@ class BGZFWriter:
         n_full = (len(self._buf) // BGZF_BLOCK_SIZE) * BGZF_BLOCK_SIZE
         if not n_full:
             return
-        if self._native is not None:
-            out = self._native.bgzf_compress(
-                bytes(self._buf[:n_full]), level=self.level, add_eof=False)
-            del self._buf[:n_full]
-            self._fh.write(out)
-            self._coffset += len(out)
-        else:
-            while len(self._buf) >= BGZF_BLOCK_SIZE:
-                self._flush_block(BGZF_BLOCK_SIZE)
+        out = native.bgzf_compress(
+            bytes(self._buf[:n_full]), level=self.level, add_eof=False)
+        del self._buf[:n_full]
+        self._fh.write(out)
+        self._coffset += len(out)
 
     def _flush_block(self, n: int) -> None:
         block = _compress_block(bytes(self._buf[:n]), self.level)
@@ -274,21 +262,12 @@ class BGZFReader:
 
 def compress(data: bytes, level: int = 6) -> bytes:
     """bgzip-equivalent: full-buffer BGZF compression incl. EOF marker."""
-    n = _native()
-    if n is not None:
-        return n.bgzf_compress(data, level=level, add_eof=True)
-    out = io.BytesIO()
-    with BGZFWriter(out, level=level) as w:
-        w.write(data)
-    return out.getvalue()
+    return native.bgzf_compress(data, level=level, add_eof=True)
 
 
 def decompress(data: bytes) -> bytes:
     """Decompress a whole BGZF byte string."""
-    n = _native()
-    if n is not None:
-        return n.bgzf_decompress(data)
-    return BGZFReader(io.BytesIO(data)).read()
+    return native.bgzf_decompress(data)
 
 
 def iter_blocks(path: str) -> Iterator[Tuple[int, bytes]]:

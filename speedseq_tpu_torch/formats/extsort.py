@@ -29,6 +29,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .bam import BAMWriter
 from .bgzf import BGZFReader, BGZFWriter
 from .sam import FREVERSE, SAMHeader, SAMRecord
@@ -71,26 +72,6 @@ def packed_keys(tid: np.ndarray, pos: np.ndarray, flag: np.ndarray) -> np.ndarra
                  np.int64(_TID_UNMAPPED_PACKED))
     rev = ((flag.astype(np.int64) & FREVERSE) != 0).astype(np.int64)
     return (t << 33) | ((pos.astype(np.int64) + 1) << 1) | rev
-
-
-def _gather_blob(blob: np.ndarray, starts: np.ndarray, sizes: np.ndarray,
-                 order: np.ndarray) -> np.ndarray:
-    """Reorder concatenated records (native one-call fast path)."""
-    try:
-        from .. import native
-        if native.available():
-            return native.gather_records(blob, starts, sizes, order)
-    except Exception:
-        pass
-    lens = sizes[order]
-    total = int(lens.sum())
-    if total == 0:
-        return blob[:0]
-    out_starts = np.zeros(len(order), np.int64)
-    np.cumsum(lens[:-1], out=out_starts[1:])
-    pos = (np.arange(total, dtype=np.int64)
-           - np.repeat(out_starts, lens) + np.repeat(starts[order], lens))
-    return blob[pos]
 
 
 def _ranked(stream, rank: int):
@@ -247,7 +228,7 @@ class ExternalBAMSorter:
         starts = np.zeros(len(sizes), np.int64)
         np.cumsum(sizes[:-1], out=starts[1:])
         order = np.argsort(keys, kind="stable")
-        return _gather_blob(blob, starts, sizes, order)
+        return native.gather_records(blob, starts, sizes, order)
 
     # -------------------------------------------------------------- spill
     def spill(self) -> None:

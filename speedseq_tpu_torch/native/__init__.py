@@ -1,13 +1,18 @@
-"""Native host-runtime bindings (csrc/ssq_native.cc via ctypes).
+"""The port's native host runtime: csrc/ssq_native.cc through ctypes.
 
 The reference's host-side hot loops are native C (htslib BGZF deflate +
 bgzf_mt thread pool, bgzf.c:781-812; bam_write1/bam_read1 record codec,
 sam.c:407,443).  This package exposes the C++ re-implementations with the
-same byte-level behavior and falls back to the pure-Python formats layer
-when the toolchain is unavailable (``available()`` gates every call site).
+same byte-level behavior.  The port requires them: its BGZF, BAM, BAI,
+align-epilogue, var and sv host layers call in here and have no other
+path.
 
-The shared object is compiled on demand with g++ and cached next to the
-source keyed by a source hash — no pip/pybind11 required (C ABI + ctypes).
+The shared object is compiled with g++ against zlib at first use
+(importing the package compiles nothing) and cached next to the source,
+keyed by a source hash: no pip/pybind11 required (C ABI + ctypes).  A
+build or load that fails raises RuntimeError, naming the g++ command and
+ending with the compiler's error; the failure is remembered, so later
+calls raise it again without building.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ def _build_dir() -> str:
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_tried = False
+_error: Optional[str] = None     # the first build or load failure
 
 _i64 = ctypes.c_int64
 _p8 = ctypes.POINTER(ctypes.c_uint8)
@@ -54,115 +59,121 @@ def _np_ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def _build() -> Optional[str]:
-    if not os.path.exists(_SRC):
-        return None
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    bdir = _build_dir()
-    so = os.path.join(bdir, f"libssq_native-{digest}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(bdir, exist_ok=True)
+def _build() -> str:
+    """Path of the library built from _SRC, compiled when the cache lacks
+    it; RuntimeError naming the g++ command and ending with its error."""
+    try:
+        with open(_SRC, "rb") as fh:
+            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        bdir = _build_dir()
+        so = os.path.join(bdir, f"libssq_native-{digest}.so")
+        if os.path.exists(so):
+            return so
+        os.makedirs(bdir, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(
+            f"the native host runtime did not build: {e}") from e
     tmp = so + f".tmp.{os.getpid()}"
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-        _SRC, "-o", tmp, "-lz",
-    ]
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+           _SRC, "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, so)
-        return so
-    except Exception:
-        try:
+    except (OSError, subprocess.SubprocessError) as e:
+        if os.path.exists(tmp):
             os.unlink(tmp)
-        except OSError:
-            pass
-        return None
+        err = getattr(e, "stderr", None)
+        detail = err.decode(errors="replace").strip() if err else str(e)
+        raise RuntimeError("the native host runtime did not build: "
+                           f"{' '.join(cmd)}\n{detail}") from e
+    return so
 
 
-def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _lib is not None or _tried:
+def load() -> ctypes.CDLL:
+    """The native library, built and loaded once, at first use; raises
+    RuntimeError when it does not build or load (and, the failure
+    remembered, on every later call)."""
+    global _lib, _error
+    if _lib is not None:
         return _lib
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("SSQ_NO_NATIVE"):
-            return None
-        so = _build()
-        if so is None:
-            return None
-        try:
-            lib = ctypes.CDLL(so)
-        except OSError:
-            return None
-        lib.ssq_version.restype = ctypes.c_int
-        lib.ssq_bgzf_compress_bound.restype = _i64
-        lib.ssq_bgzf_compress_bound.argtypes = [_i64]
-        lib.ssq_bgzf_compress.restype = _i64
-        lib.ssq_bgzf_compress.argtypes = [
-            _p8, _i64, ctypes.c_int, ctypes.c_int, _p8, _i64, ctypes.c_int]
-        lib.ssq_bgzf_scan.restype = _i64
-        lib.ssq_bgzf_scan.argtypes = [
-            _p8, _i64, ctypes.POINTER(_i64), ctypes.POINTER(_i64),
-            ctypes.POINTER(_i64), _i64]
-        lib.ssq_bgzf_decompress.restype = _i64
-        lib.ssq_bgzf_decompress.argtypes = [
-            _p8, ctypes.POINTER(_i64), ctypes.POINTER(_i64),
-            ctypes.POINTER(_i64), ctypes.POINTER(_i64), _i64, ctypes.c_int,
-            _p8, _i64]
-        lib.ssq_bam_encode_size.restype = _i64
-        lib.ssq_bam_encode_size.argtypes = [_i64] + [ctypes.POINTER(_i64)] * 4
-        _pi32 = ctypes.POINTER(ctypes.c_int32)
-        _pu16 = ctypes.POINTER(ctypes.c_uint16)
-        _pu32 = ctypes.POINTER(ctypes.c_uint32)
-        _pi64 = ctypes.POINTER(_i64)
-        lib.ssq_bam_encode.restype = _i64
-        lib.ssq_bam_encode.argtypes = [
-            _i64, _pi32, _pi32, _pi32, _p8, _pu16, _pi32, _pi32, _pi32,
-            _p8, _pi64, _pu32, _pi64, _p8, _p8, _pi64, _p8, _pi64, _p8, _i64]
-        lib.ssq_bam_scan.restype = _i64
-        lib.ssq_bam_scan.argtypes = [_p8, _i64, _pi64]
-        lib.ssq_bam_decode.restype = _i64
-        lib.ssq_bam_decode.argtypes = [
-            _p8, _i64, _pi32, _pi32, _p8, _pu16, _pi32, _pi32, _pi32,
-            _p8, _pi64, _pu32, _pi64, _p8, _p8, _pi64, _p8, _pi64]
-        lib.ssq_cigar_strings.restype = _i64
-        lib.ssq_cigar_strings.argtypes = [_i64, _pu32, _pi64, _p8, _i64, _pi64]
-        lib.ssq_build_aux.restype = _i64
-        lib.ssq_build_aux.argtypes = [
-            _i64, _pi32, _pi32, _pi32, _pi32, _pi32, _p8, _pi64,
-            _p8, _pi64, _p8, _pi64, _p8, _i64, _pi64]
-        lib.ssq_gather_records.restype = _i64
-        lib.ssq_gather_records.argtypes = [
-            _p8, _pi64, _pi64, _pi64, _i64, _p8, _i64]
-        lib.ssq_find_ztag.restype = _i64
-        lib.ssq_find_ztag.argtypes = [
-            _p8, _pi64, _i64, ctypes.c_uint8, ctypes.c_uint8, _pi64, _pi64]
-        lib.ssq_cigar_str_reflen.restype = _i64
-        lib.ssq_cigar_str_reflen.argtypes = [_p8, _pi64, _pi64, _i64, _pi32]
-        _pi8 = ctypes.POINTER(ctypes.c_int8)
-        lib.ssq_pileup_expand.restype = _i64
-        lib.ssq_pileup_expand.argtypes = [
-            _i64, _pi64, _pi64, _p8, _p8, _pu32, _pi64, _pi64, _pi64,
-            _pi64, _pi8, _i64, _i64, _i64,
-            _pi8, _pi8, _pi32, _pi32, _pi32, _pi32]
-        lib.ssq_bgzf_whole.restype = _i64
-        lib.ssq_bgzf_whole.argtypes = [_p8, _i64]
-        lib.ssq_bam_whole.restype = _i64
-        lib.ssq_bam_whole.argtypes = [_p8, _i64, ctypes.c_uint16, _pi64]
-        lib.ssq_bam_reads.restype = _i64
-        lib.ssq_bam_reads.argtypes = [
-            _p8, _i64, ctypes.c_uint16, ctypes.c_uint16, _i64, _i64, _p8, _p8,
-            _pi32, _pu16, _pi64, _pi64, _pi64, _pi64]
-        _lib = lib
+        if _lib is None and _error is None:
+            try:
+                _lib = _declare(_build())
+            except RuntimeError as e:
+                _error = str(e)
+        if _error is not None:
+            raise RuntimeError(_error)
         return _lib
 
 
-def available() -> bool:
-    return _load() is not None
+def _declare(so: str) -> ctypes.CDLL:
+    """The library at ``so`` with every entry's argtypes and restype."""
+    try:
+        lib = ctypes.CDLL(so)
+    except OSError as e:
+        raise RuntimeError(
+            f"the native host runtime did not load: {so}\n{e}") from e
+    lib.ssq_version.restype = ctypes.c_int
+    lib.ssq_bgzf_compress_bound.restype = _i64
+    lib.ssq_bgzf_compress_bound.argtypes = [_i64]
+    lib.ssq_bgzf_compress.restype = _i64
+    lib.ssq_bgzf_compress.argtypes = [
+        _p8, _i64, ctypes.c_int, ctypes.c_int, _p8, _i64, ctypes.c_int]
+    lib.ssq_bgzf_scan.restype = _i64
+    lib.ssq_bgzf_scan.argtypes = [
+        _p8, _i64, ctypes.POINTER(_i64), ctypes.POINTER(_i64),
+        ctypes.POINTER(_i64), _i64]
+    lib.ssq_bgzf_decompress.restype = _i64
+    lib.ssq_bgzf_decompress.argtypes = [
+        _p8, ctypes.POINTER(_i64), ctypes.POINTER(_i64),
+        ctypes.POINTER(_i64), ctypes.POINTER(_i64), _i64, ctypes.c_int,
+        _p8, _i64]
+    lib.ssq_bam_encode_size.restype = _i64
+    lib.ssq_bam_encode_size.argtypes = [_i64] + [ctypes.POINTER(_i64)] * 4
+    _pi32 = ctypes.POINTER(ctypes.c_int32)
+    _pu16 = ctypes.POINTER(ctypes.c_uint16)
+    _pu32 = ctypes.POINTER(ctypes.c_uint32)
+    _pi64 = ctypes.POINTER(_i64)
+    lib.ssq_bam_encode.restype = _i64
+    lib.ssq_bam_encode.argtypes = [
+        _i64, _pi32, _pi32, _pi32, _p8, _pu16, _pi32, _pi32, _pi32,
+        _p8, _pi64, _pu32, _pi64, _p8, _p8, _pi64, _p8, _pi64, _p8, _i64]
+    lib.ssq_bam_scan.restype = _i64
+    lib.ssq_bam_scan.argtypes = [_p8, _i64, _pi64]
+    lib.ssq_bam_decode.restype = _i64
+    lib.ssq_bam_decode.argtypes = [
+        _p8, _i64, _pi32, _pi32, _p8, _pu16, _pi32, _pi32, _pi32,
+        _p8, _pi64, _pu32, _pi64, _p8, _p8, _pi64, _p8, _pi64]
+    lib.ssq_cigar_strings.restype = _i64
+    lib.ssq_cigar_strings.argtypes = [_i64, _pu32, _pi64, _p8, _i64, _pi64]
+    lib.ssq_build_aux.restype = _i64
+    lib.ssq_build_aux.argtypes = [
+        _i64, _pi32, _pi32, _pi32, _pi32, _pi32, _p8, _pi64,
+        _p8, _pi64, _p8, _pi64, _p8, _i64, _pi64]
+    lib.ssq_gather_records.restype = _i64
+    lib.ssq_gather_records.argtypes = [
+        _p8, _pi64, _pi64, _pi64, _i64, _p8, _i64]
+    lib.ssq_find_ztag.restype = _i64
+    lib.ssq_find_ztag.argtypes = [
+        _p8, _pi64, _i64, ctypes.c_uint8, ctypes.c_uint8, _pi64, _pi64]
+    lib.ssq_cigar_str_reflen.restype = _i64
+    lib.ssq_cigar_str_reflen.argtypes = [_p8, _pi64, _pi64, _i64, _pi32]
+    _pi8 = ctypes.POINTER(ctypes.c_int8)
+    lib.ssq_pileup_expand.restype = _i64
+    lib.ssq_pileup_expand.argtypes = [
+        _i64, _pi64, _pi64, _p8, _p8, _pu32, _pi64, _pi64, _pi64,
+        _pi64, _pi8, _i64, _i64, _i64,
+        _pi8, _pi8, _pi32, _pi32, _pi32, _pi32]
+    lib.ssq_bgzf_whole.restype = _i64
+    lib.ssq_bgzf_whole.argtypes = [_p8, _i64]
+    lib.ssq_bam_whole.restype = _i64
+    lib.ssq_bam_whole.argtypes = [_p8, _i64, ctypes.c_uint16, _pi64]
+    lib.ssq_bam_reads.restype = _i64
+    lib.ssq_bam_reads.argtypes = [
+        _p8, _i64, ctypes.c_uint16, ctypes.c_uint16, _i64, _i64, _p8, _p8,
+        _pi32, _pu16, _pi64, _pi64, _pi64, _pi64]
+    return lib
 
 
 def default_threads() -> int:
@@ -175,8 +186,7 @@ def bgzf_compress(data: bytes, level: int = 6, add_eof: bool = True,
 
     Byte-identical to the Python formats.bgzf writer at the same level.
     """
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     nt = nthreads or default_threads()
     src = np.frombuffer(data, dtype=np.uint8)
     cap = lib.ssq_bgzf_compress_bound(len(data))
@@ -192,8 +202,7 @@ def bgzf_compress(data: bytes, level: int = 6, add_eof: bool = True,
 
 def bgzf_decompress(data: bytes, nthreads: Optional[int] = None) -> bytes:
     """Whole-buffer parallel BGZF decompression (with CRC verification)."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     nt = nthreads or default_threads()
     src = np.frombuffer(data, dtype=np.uint8)
     max_blocks = max(1, len(data) // 64 + 16)
@@ -246,8 +255,7 @@ class BamColumns:
 
 def bam_encode(c: "BamColumns") -> bytes:
     """Columnar → concatenated block_size-prefixed BAM records."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     n = c.n
     size = lib.ssq_bam_encode_size(
         n, _np_ptr(c.qname_off, _i64), _np_ptr(c.cigar_off, _i64),
@@ -281,8 +289,7 @@ def pileup_expand(pos, seq_off, seq_blob, qual_blob, cigar_blob,
                   base_counts, qual_sums, strand_counts) -> int:
     """One-pass pileup expansion (see ssq_pileup_expand): fills the
     span-compact flat layout + count matrices in place."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     return lib.ssq_pileup_expand(
         len(pos), _np_ptr(pos, _i64), _np_ptr(seq_off, _i64),
         _np_ptr(seq_blob, ctypes.c_uint8), _np_ptr(qual_blob, ctypes.c_uint8),
@@ -300,8 +307,7 @@ def pileup_expand(pos, seq_off, seq_blob, qual_blob, cigar_blob,
 
 def cigar_strings(cigar_blob: np.ndarray, cigar_off: np.ndarray):
     """Batch cigar → ASCII (per-record); returns (blob u8, off i64 n+1)."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     n = len(cigar_off) - 1
     cap = 11 * max(int(cigar_off[-1]), 1) + 1
     dst = np.empty(cap, np.uint8)
@@ -319,8 +325,7 @@ def build_aux(nm, as_, xs, mq, rg_idx, rg_blob, rg_off, mc_blob, mc_off,
     """Batch aux-blob assembly (NM/AS/XS/RG/MC/MQ + extra raw bytes).
 
     Int columns use _AUX_ABSENT as the "tag not present" sentinel."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     n = len(nm)
     # bound by the *maximum* RG string (the average under-allocates when
     # a long RG ID dominates a mixed-RG batch, aborting the run with
@@ -350,8 +355,7 @@ def build_aux(nm, as_, xs, mq, rg_idx, rg_blob, rg_off, mc_blob, mc_off,
 def gather_records(blob: np.ndarray, starts: np.ndarray, sizes: np.ndarray,
                    order: np.ndarray) -> np.ndarray:
     """Reorder concatenated BAM records in one native call."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     total = int(sizes.sum())
     dst = np.empty(max(total, 1), np.uint8)
     got = lib.ssq_gather_records(
@@ -366,8 +370,7 @@ def gather_records(blob: np.ndarray, starts: np.ndarray, sizes: np.ndarray,
 def bgzf_block_table(data: bytes):
     """(coffsets, isizes) of every BGZF block in ``data`` — the
     compressed↔uncompressed offset map (virtual-offset computation)."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     src = np.frombuffer(data, dtype=np.uint8)
     max_blocks = max(1, len(data) // 64 + 16)
     while True:
@@ -390,8 +393,7 @@ def find_ztag(aux_blob: np.ndarray, aux_off: np.ndarray, tag: str):
     """Per-record (offset, length) span of a Z-type aux tag's value in
     aux_blob; offset -1 when absent.  Proper tag-list walk (no substring
     false positives)."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     n = len(aux_off) - 1
     out_off = np.empty(n, np.int64)
     out_len = np.empty(n, np.int64)
@@ -406,8 +408,7 @@ def cigar_str_reflen(blob: np.ndarray, off: np.ndarray,
                      length: np.ndarray) -> np.ndarray:
     """Reference-consumed length of ASCII cigar strings at (off, len)
     spans (MC/SA tag cigars); 0 where off < 0."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     n = len(off)
     out = np.empty(n, np.int32)
     lib.ssq_cigar_str_reflen(
@@ -418,8 +419,7 @@ def cigar_str_reflen(blob: np.ndarray, off: np.ndarray,
 
 def bam_decode(blob: bytes) -> "BamColumns":
     """Concatenated BAM records → columnar arrays (seq back as ASCII)."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     src = np.frombuffer(blob, dtype=np.uint8)
     counts = np.zeros(5, dtype=np.int64)
     n = lib.ssq_bam_scan(
@@ -463,8 +463,7 @@ def bam_decode(blob: bytes) -> "BamColumns":
 
 def bgzf_whole(data) -> int:
     """Bytes of the longest prefix of ``data`` made of whole BGZF blocks."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     src = np.frombuffer(data, np.uint8)
     got = lib.ssq_bgzf_whole(
         _np_ptr(src, ctypes.c_uint8) if len(src) else _p8(), len(src))
@@ -477,8 +476,7 @@ def bam_whole(src: np.ndarray, skip_mask: int) -> Tuple[int, int]:
     """(bytes, rows) of the whole records at the head of the BAM record
     stream ``src`` (u8): the rows are the records ``bam_reads`` keeps,
     those with no flag of ``skip_mask`` and a sequence."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     src = np.ascontiguousarray(src, np.uint8)
     out = np.zeros(2, np.int64)
     got = lib.ssq_bam_whole(
@@ -507,8 +505,7 @@ def bam_reads(src: np.ndarray, rows: int, skip_mask: int, turn_mask: int,
     measured with the same ``skip_mask``: each in its original orientation
     (records with a flag of ``turn_mask`` reverse-complemented, qualities
     reversed), qualities all 0xff read 30, cut to ``max_len``."""
-    lib = _load()
-    assert lib is not None, "native library unavailable"
+    lib = load()
     src = np.ascontiguousarray(src, np.uint8)
     i64 = [np.empty(rows, np.int64) for _ in range(4)]
     r = BamReads(np.empty((rows, max_len), np.uint8),

@@ -3,27 +3,26 @@
 The reference builds its native engines via Makefile targets
 (Makefile:43-51); here the single C++ runtime (csrc/ssq_native.cc —
 BGZF codec, BAM record codec, columnar record assembly, aux-tag
-scanners) is compiled with the same g++ invocation the on-demand import
-path uses, so this is just the eager form of that build.
+scanners) is compiled with the same g++ invocation the first use in a
+process makes, so this is just the eager form of that build.
 """
 
 from __future__ import annotations
 
 import sys
 
-from . import _build, available
+from . import _build, load
 
 
 def main() -> int:
-    so = _build()
-    if so is None:
-        print("native build failed (g++ unavailable or compile error); "
-              "the package will use the pure-Python fallbacks",
-              file=sys.stderr)
+    try:
+        load()
+    except RuntimeError as e:
+        print(f"{e}\nthe port cannot run without its native runtime "
+              "(g++ and zlib)", file=sys.stderr)
         return 1
-    ok = available()
-    print(f"built {so} (loadable: {ok})")
-    return 0 if ok else 1
+    print(f"built {_build()}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@
 // htslib/sam.h:148-181).  This library re-implements those behaviors as a
 // C ABI shared object consumed via ctypes (speedseq_tpu_torch/native/__init__.py).
 // Byte-exactness: deflate uses zlib raw streams at the same level as the
-// Python fallback, so outputs are bit-identical either way.
+// formats layer's one-block Python writer, so outputs are bit-identical.
 //
 // NOT a copy of htslib: fresh implementation against the format contract
 // documented in SURVEY.md §2.2 #1.

@@ -46,8 +46,8 @@
 // 1.45, so no one-warp-per-alignment design passes 1.45 / 2 = 73 % of the
 // instruction bound there, and the row's dependent chain (the vertical
 // shuffle, two window rounds, F) sets its pace: ~345 clocks a row.  At
-// 32,768 lanes (score_mode="sw" phase 1) the instructions do: ~123 clocks
-// a warp-row, ~1.4 an instruction.
+// 32,768 lanes (every chain of an 8,192-read batch end) the instructions
+// do: ~123 clocks a warp-row, ~1.4 an instruction.
 //
 // The traceback kernel (sw_cigar_kernel) runs the score kernel's row (one
 // code for both: stage, make_const, row_front and del_window, whose fill

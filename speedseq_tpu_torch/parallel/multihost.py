@@ -50,6 +50,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..align.markdup import StreamDupMarker
 
 EXCHANGE_TIMEOUT_S = 300.0
@@ -430,8 +431,6 @@ class ReshardingSorter:
                     np.frombuffer(cols.encode(), np.uint8))
 
     def _route(self, keys, sizes, blob) -> None:
-        from ..formats.extsort import _gather_blob
-
         P = self.ex.P
         starts = np.zeros(len(sizes), np.int64)
         if len(sizes):
@@ -440,7 +439,7 @@ class ReshardingSorter:
         payloads = []
         for d in range(P):
             sel = np.nonzero(tgt == d)[0]          # intake order preserved
-            pb = _gather_blob(blob, starts, sizes, sel)
+            pb = native.gather_records(blob, starts, sizes, sel)
             payloads.append(
                 struct.pack("<q", len(sel)) + keys[sel].tobytes()
                 + sizes[sel].tobytes() + pb.tobytes())

@@ -49,16 +49,11 @@ class DepthProfile:
         device=None,
     ) -> "DepthProfile":
         """-tree/-his equivalents: bin read placements (midpoints), then
-        GC-correct; both on the run's device.  Needs the native codec."""
-        from .. import native
+        GC-correct; both on the run's device."""
         from . import device as dev_mod
         from .columnar import end_positions, read_bam_columns
 
         device = resolve_device(device)
-        if not native.available():
-            raise RuntimeError(
-                "sv read depth needs the native BAM codec, which did not "
-                "build or load")
         fa = FastaFile(fasta_path)
         refs, cols = read_bam_columns(bam_path)
         names = [n for n, _ in refs]

@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..formats.sam import (
     FDUP, FMREVERSE, FMUNMAP, FPAIRED, FPROPER_PAIR, FREAD1, FREVERSE,
     FSECONDARY, FSUPPLEMENTARY, FUNMAP,
@@ -26,19 +27,11 @@ from ..formats.sam import (
 _CIG_RCONSUME = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1, 0], bool)  # M D N = X
 
 
-def _native():
-    from .. import native
-
-    assert native.available(), "native runtime required for columnar sv"
-    return native
-
-
 def read_bam_columns(path: str, with_blob: bool = False):
     """Whole-file columnar read: one parallel BGZF inflate + one native
     record decode.  Returns (refs [(name, len)], BamColumns) — plus the
     raw block_size-prefixed record bytes when ``with_blob`` (for
     subset-and-rewrite flows via native.gather_records)."""
-    native = _native()
     with open(path, "rb") as fh:
         raw = native.bgzf_decompress(fh.read())
     if raw[:4] != b"BAM\x01":
@@ -100,7 +93,6 @@ def clip_flags(cols) -> Tuple[np.ndarray, np.ndarray]:
 
 def ztag_strings(cols, tag: str):
     """(offsets, lengths) of a Z tag's value in cols.aux_blob; -1 absent."""
-    native = _native()
     return native.find_ztag(
         np.ascontiguousarray(cols.aux_blob, np.uint8),
         np.ascontiguousarray(cols.aux_off, np.int64), tag)
@@ -138,7 +130,6 @@ def unique_ztag_values(cols, tag: str):
 def mate_ref_lengths(cols, default: int) -> np.ndarray:
     """(n,) mate reference span from the MC tag; ``default`` where the
     tag is absent (the reference uses read_len there too)."""
-    native = _native()
     off, ln = ztag_strings(cols, "MC")
     out = native.cigar_str_reflen(
         np.ascontiguousarray(cols.aux_blob, np.uint8), off, ln)

@@ -147,8 +147,7 @@ def extract_side_bams(
       (samblaster --discordantFile semantics)
 
     Either output may be None to skip generating that side channel (the
-    user supplied it already — never overwrite a user input).  Needs the
-    native codec.
+    user supplied it already — never overwrite a user input).
     """
     from ..formats.sam import (
         FDUP, FMUNMAP, FPAIRED, FPROPER_PAIR, FSECONDARY, FSUPPLEMENTARY,
@@ -157,10 +156,6 @@ def extract_side_bams(
     from .. import native
     from .columnar import read_bam_columns, record_sizes, ztag_strings
 
-    if not native.available():
-        raise RuntimeError(
-            "extracting splitters/discordants needs the native BAM codec, "
-            "which did not build or load")
     refs, cols, blob = read_bam_columns(full_bam, with_blob=True)
     flags = cols.flag.astype(np.int64)
     base = (flags & (FDUP | FSECONDARY | FUNMAP)) == 0

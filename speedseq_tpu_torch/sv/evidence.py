@@ -10,17 +10,18 @@ knobs — min sample weight 4 (``-m``, bin/speedseq:1242), trim 0 (``-r``,
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..formats.bam import BAMReader
 from ..formats.bed import ExcludeMask
 from ..formats.sam import (
     FDUP, FMUNMAP, FPROPER_PAIR, FREAD1, FREVERSE, FMREVERSE, FSECONDARY,
-    FSUPPLEMENTARY, FUNMAP, SAMRecord, cigar_from_str, cigar_ref_len,
-    cigar_query_len,
+    FSUPPLEMENTARY, FUNMAP, cigar_from_str, cigar_ref_len,
 )
 
 # SV types
@@ -43,63 +44,44 @@ class InsertStats:
         """Sample proper pairs from the full BAM (lumpyexpress samples the
         first N pairs through pairend_distro.py).
 
-        Columnar: a bounded raw-record prefix decodes in one native call
-        and the flag/tlen selection is vectorized; the per-record
-        SAMRecord fallback only runs without the native codec."""
-        from .. import native
-
+        A bounded raw-record prefix decodes in one native call and the
+        flag/tlen selection is vectorized."""
         isizes: List[int] = []
         rlen = 100
-        if native.available():
-            import struct as _struct
-
-            # bulk-chunk ingestion: 4 MiB decompressed spans per read
-            # (block-sized copies inside BGZFReader.read), one native
-            # columnar decode per chunk, until n_sample qualifying
-            # tlen>0 records are collected or EOF — the same
-            # termination condition as the per-record fallback below.
-            excl = FUNMAP | FMUNMAP | FSECONDARY | FSUPPLEMENTARY | FDUP
-            tl_parts: List[np.ndarray] = []
-            count = 0
-            with BAMReader(bam_path) as rd:
-                buf = b""
-                while count < n_sample:
-                    more = rd._r.read(1 << 22)
-                    buf += more
-                    # longest whole-record prefix (records can straddle
-                    # chunk boundaries; the tail carries over)
-                    off, nb = 0, len(buf)
-                    while off + 4 <= nb:
-                        (bs,) = _struct.unpack_from("<i", buf, off)
-                        if off + 4 + bs > nb:
-                            break
-                        off += 4 + bs
-                    if off:
-                        cols = native.bam_decode(buf[:off])
-                        buf = buf[off:]
-                        flags = cols.flag.astype(np.int64)
-                        keep = ((flags & excl) == 0) & (cols.tlen > 0)
-                        tl_parts.append(cols.tlen[keep])
-                        count += int(keep.sum())
-                        slen = np.diff(cols.seq_off)[keep]
-                        if len(slen):
-                            rlen = max(rlen, int(slen.max()))
-                    if not more:
+        # bulk-chunk ingestion: 4 MiB decompressed spans per read
+        # (block-sized copies inside BGZFReader.read), one native columnar
+        # decode per chunk, until n_sample qualifying tlen>0 records are
+        # collected or EOF
+        excl = FUNMAP | FMUNMAP | FSECONDARY | FSUPPLEMENTARY | FDUP
+        tl_parts: List[np.ndarray] = []
+        count = 0
+        with BAMReader(bam_path) as rd:
+            buf = b""
+            while count < n_sample:
+                more = rd._r.read(1 << 22)
+                buf += more
+                # longest whole-record prefix (records can straddle
+                # chunk boundaries; the tail carries over)
+                off, nb = 0, len(buf)
+                while off + 4 <= nb:
+                    (bs,) = struct.unpack_from("<i", buf, off)
+                    if off + 4 + bs > nb:
                         break
-            if tl_parts:
-                isizes = np.concatenate(tl_parts)[:n_sample].tolist()
-        else:
-            with BAMReader(bam_path) as rd:
-                for rec in rd:
-                    if rec.flag & (FUNMAP | FMUNMAP | FSECONDARY
-                                   | FSUPPLEMENTARY | FDUP):
-                        continue
-                    if rec.tlen > 0:
-                        isizes.append(rec.tlen)
-                        if rec.seq != "*":
-                            rlen = max(rlen, len(rec.seq))
-                    if len(isizes) >= n_sample:
-                        break
+                    off += 4 + bs
+                if off:
+                    cols = native.bam_decode(buf[:off])
+                    buf = buf[off:]
+                    flags = cols.flag.astype(np.int64)
+                    keep = ((flags & excl) == 0) & (cols.tlen > 0)
+                    tl_parts.append(cols.tlen[keep])
+                    count += int(keep.sum())
+                    slen = np.diff(cols.seq_off)[keep]
+                    if len(slen):
+                        rlen = max(rlen, int(slen.max()))
+                if not more:
+                    break
+        if tl_parts:
+            isizes = np.concatenate(tl_parts)[:n_sample].tolist()
         if not isizes:
             return cls.synthetic(320.0, 50.0, rlen)
         v = np.asarray(isizes, dtype=np.float64)
@@ -145,171 +127,6 @@ class Breakpoint:
     qname: str = ""
 
 
-def classify_pair(
-    tid1: int, pos1: int, end1: int, rev1: bool,
-    tid2: int, pos2: int, end2: int, rev2: bool,
-    stats: InsertStats,
-) -> Optional[str]:
-    """SV type implied by a discordant pair's orientation [ext: lumpy]."""
-    if tid1 != tid2:
-        return BND
-    if rev1 == rev2:
-        return INV
-    # order by position
-    if pos1 <= pos2:
-        first_rev, second_rev = rev1, rev2
-        span = max(end1, end2) - min(pos1, pos2)
-    else:
-        first_rev, second_rev = rev2, rev1
-        span = max(end1, end2) - min(pos1, pos2)
-    if not first_rev and second_rev:
-        # FR: deletion if span too large (too small = insertion; not called)
-        return DEL if span > stats.max_normal else None
-    if first_rev and not second_rev:
-        return DUP
-    return None
-
-
-def pair_breakpoint(
-    rec: SAMRecord, stats: InsertStats, sample: int
-) -> Optional[Breakpoint]:
-    """Breakpoint prediction from one discordant read (uses mate info; we
-    emit one Breakpoint per pair, from the leftmost read only)."""
-    if rec.flag & (FUNMAP | FMUNMAP | FSECONDARY | FSUPPLEMENTARY | FDUP):
-        return None
-    if rec.mtid < 0:
-        return None
-    # only process from the leftmost end to avoid double-counting
-    if (rec.tid, rec.pos) > (rec.mtid, rec.mpos):
-        return None
-    if (rec.tid, rec.pos) == (rec.mtid, rec.mpos) and not (rec.flag & 0x40):
-        return None
-    rev1 = bool(rec.flag & FREVERSE)
-    rev2 = bool(rec.flag & FMREVERSE)
-    end1 = rec.end_pos()
-    qlen = cigar_query_len(rec.cigar) or stats.read_len
-    mc = rec.get_tag("MC")
-    mate_rlen = cigar_ref_len(cigar_from_str(mc)) if mc else stats.read_len
-    end2 = rec.mpos + mate_rlen
-    svtype = classify_pair(
-        rec.tid, rec.pos, end1, rev1, rec.mtid, rec.mpos, end2, rev2, stats
-    )
-    if svtype is None:
-        return None
-    D = max(8, stats.max_normal - 2 * stats.read_len)
-    # probability of the break being o bases beyond the read end decays
-    # with the insert survival function (lumpy's pe distribution)
-    span0 = int(end2 - rec.pos)
-    probs = stats.sf[
-        np.clip(span0 + np.arange(D), 0, len(stats.sf) - 1)
-    ].astype(np.float64)
-    if probs.sum() <= 0:
-        probs = np.ones(D)
-    probs = probs / probs.sum()
-    if svtype == DEL:
-        # + read: break1 in [end1, end1+D); - mate: break2 in (mpos-D, mpos]
-        return Breakpoint(
-            svtype=svtype, tid1=rec.tid, strand1=0, start1=end1,
-            prob1=probs.copy(), tid2=rec.mtid, strand2=1,
-            start2=rec.mpos - D + 1, prob2=probs[::-1].copy(),
-            weight=1, sample=sample, is_split=False, qname=rec.qname,
-        )
-    if svtype == DUP:
-        # - read first: break1 in (pos-D, pos]; + mate: break2 in [end2, end2+D)
-        return Breakpoint(
-            svtype=svtype, tid1=rec.tid, strand1=1,
-            start1=rec.pos - D + 1, prob1=probs[::-1].copy(),
-            tid2=rec.mtid, strand2=0, start2=end2, prob2=probs.copy(),
-            weight=1, sample=sample, is_split=False, qname=rec.qname,
-        )
-    if svtype == INV:
-        if not rev1:  # ++ : breaks right of both ends
-            return Breakpoint(
-                svtype=svtype, tid1=rec.tid, strand1=0, start1=end1,
-                prob1=probs.copy(), tid2=rec.mtid, strand2=0, start2=end2,
-                prob2=probs.copy(), weight=1, sample=sample, is_split=False,
-                qname=rec.qname,
-            )
-        return Breakpoint(  # -- : breaks left of both starts
-            svtype=svtype, tid1=rec.tid, strand1=1, start1=rec.pos - D + 1,
-            prob1=probs[::-1].copy(), tid2=rec.mtid, strand2=1,
-            start2=rec.mpos - D + 1, prob2=probs[::-1].copy(),
-            weight=1, sample=sample, is_split=False, qname=rec.qname,
-        )
-    # BND (inter-chromosomal)
-    s1 = 0 if not rev1 else 1
-    s2 = 0 if not rev2 else 1
-    return Breakpoint(
-        svtype=BND, tid1=rec.tid, strand1=s1,
-        start1=end1 if s1 == 0 else rec.pos - D + 1,
-        prob1=probs.copy() if s1 == 0 else probs[::-1].copy(),
-        tid2=rec.mtid, strand2=s2,
-        start2=end2 if s2 == 0 else rec.mpos - D + 1,
-        prob2=probs.copy() if s2 == 0 else probs[::-1].copy(),
-        weight=1, sample=sample, is_split=False, qname=rec.qname,
-    )
-
-
-_SLOP = 3  # split-read breakpoint uncertainty (lumpy sr back-off)
-
-
-def split_breakpoint(
-    rec: SAMRecord, sample: int, name_to_tid, stats: InsertStats
-) -> Optional[Breakpoint]:
-    """Breakpoint from a split read (primary record carrying an SA tag)."""
-    if rec.flag & (FUNMAP | FSECONDARY | FDUP | FSUPPLEMENTARY):
-        return None
-    sa = rec.get_tag("SA")
-    if not sa:
-        return None
-    seg = sa.split(";")[0].split(",")
-    if len(seg) < 6:
-        return None
-    stid = name_to_tid(seg[0])
-    spos = int(seg[1]) - 1
-    sstrand = 0 if seg[2] == "+" else 1
-    scigar = cigar_from_str(seg[3])
-    send = spos + cigar_ref_len(scigar)
-    rev1 = 1 if rec.flag & FREVERSE else 0
-    pend = rec.end_pos()
-    # junction side per piece: the side where the clip is
-    lead1 = rec.cigar[0][1] if rec.cigar and rec.cigar[0][0] in (4, 5) else 0
-    tail1 = rec.cigar[-1][1] if rec.cigar and rec.cigar[-1][0] in (4, 5) else 0
-    bp1 = pend if tail1 >= lead1 else rec.pos
-    o1 = 0 if tail1 >= lead1 else 1
-    lead2 = scigar[0][1] if scigar and scigar[0][0] in (4, 5) else 0
-    tail2 = scigar[-1][1] if scigar and scigar[-1][0] in (4, 5) else 0
-    bp2 = send if tail2 >= lead2 else spos
-    o2 = 0 if tail2 >= lead2 else 1
-    if stid != rec.tid:
-        svtype = BND
-    elif rev1 != sstrand:
-        svtype = INV
-    else:
-        # same strand: order breaks; junction-side orientation decides
-        lo, hi = min(bp1, bp2), max(bp1, bp2)
-        lo_o = o1 if bp1 <= bp2 else o2
-        if lo_o == 0:
-            svtype = DEL
-        else:
-            svtype = DUP
-    prob = np.zeros(2 * _SLOP + 1)
-    prob[_SLOP] = 0.8
-    prob[:_SLOP] = 0.1 / _SLOP
-    prob[_SLOP + 1 :] = 0.1 / _SLOP
-    # order breakpoints (tid, pos)
-    if (stid, bp2) < (rec.tid, bp1):
-        (t1, b1, s1), (t2, b2, s2) = (stid, bp2, o2), (rec.tid, bp1, o1)
-    else:
-        (t1, b1, s1), (t2, b2, s2) = (rec.tid, bp1, o1), (stid, bp2, o2)
-    return Breakpoint(
-        svtype=svtype, tid1=t1, strand1=s1, start1=b1 - _SLOP,
-        prob1=prob.copy(), tid2=t2, strand2=s2, start2=b2 - _SLOP,
-        prob2=prob.copy(), weight=1, sample=sample, is_split=True,
-        qname=rec.qname,
-    )
-
-
 def collect_evidence(
     disc_paths: List[str],
     split_paths: List[str],
@@ -317,47 +134,15 @@ def collect_evidence(
     exclude: Optional[ExcludeMask] = None,
     ref_names: Optional[List[str]] = None,
 ) -> List[Breakpoint]:
-    """Gather all evidence from per-sample discordant + splitter BAMs.
-
-    Columnar when the native codec is available (whole-file decode, flag/
-    orientation classification and probability-curve construction as
-    numpy column ops; Breakpoint objects exist only for actual evidence);
-    per-record fallback otherwise."""
-    from .. import native
-
-    if native.available():
-        return _collect_evidence_columnar(
-            disc_paths, split_paths, stats, exclude)
+    """Gather all evidence from per-sample discordant + splitter BAMs:
+    whole-file decode, flag/orientation classification and
+    probability-curve construction as numpy column ops; Breakpoint objects
+    exist only for actual evidence."""
     out: List[Breakpoint] = []
     for si, path in enumerate(disc_paths):
-        with BAMReader(path) as rd:
-            names = [n for n, _ in rd.header.refs]
-            for rec in rd:
-                bp = pair_breakpoint(rec, stats[si], si)
-                if bp is None:
-                    continue
-                if exclude is not None and (
-                    exclude.contains(names[bp.tid1], [bp.start1])[0]
-                    or exclude.contains(names[bp.tid2], [bp.start2])[0]
-                ):
-                    continue
-                out.append(bp)
+        out.extend(_pair_evidence_columnar(path, stats[si], si, exclude))
     for si, path in enumerate(split_paths):
-        with BAMReader(path) as rd:
-            names = [n for n, _ in rd.header.refs]
-            n2t = {n: i for i, n in enumerate(names)}
-            for rec in rd:
-                bp = split_breakpoint(
-                    rec, si, lambda n: n2t.get(n, -1), stats[si]
-                )
-                if bp is None or bp.tid1 < 0 or bp.tid2 < 0:
-                    continue
-                if exclude is not None and (
-                    exclude.contains(names[bp.tid1], [bp.start1])[0]
-                    or exclude.contains(names[bp.tid2], [bp.start2])[0]
-                ):
-                    continue
-                out.append(bp)
+        out.extend(_split_evidence_columnar(path, stats[si], si, exclude))
     return out
 
 
@@ -386,7 +171,11 @@ def _excluded(exclude, names, tid, pos) -> np.ndarray:
 def _pair_evidence_columnar(
     path: str, stats: InsertStats, si: int, exclude: Optional[ExcludeMask],
 ) -> List[Breakpoint]:
-    """Vectorized twin of pair_breakpoint over a whole discordants BAM."""
+    """Discordant-pair breakpoints over a whole discordants BAM, one a pair
+    from its leftmost read: the SV type by the pair's orientation [ext:
+    lumpy] (another contig BND, one strand INV, FR beyond ``max_normal``
+    DEL, RF DUP), each side's interval weighted by the insert survival
+    function."""
     from .columnar import end_positions, mate_ref_lengths, read_bam_columns
 
     refs, cols = read_bam_columns(path)
@@ -431,7 +220,8 @@ def _pair_evidence_columnar(
     span0 = (end2 - pos)[vi]
     probs = _pair_probs(stats, span0, D)
 
-    # breakpoint intervals per type (same math as pair_breakpoint)
+    # breakpoint intervals per type: a + side breaks in [end, end + D),
+    # a - side in (start - D, start]
     tid, pos, mtid, mpos = tid[vi], pos[vi], mtid[vi], mpos[vi]
     end1, end2 = end1[vi], end2[vi]
     rev1, rev2 = rev1[vi], rev2[vi]
@@ -471,6 +261,9 @@ def _pair_evidence_columnar(
             weight=1, sample=si, is_split=False,
         ))
     return out
+
+
+_SLOP = 3  # split-read breakpoint uncertainty (lumpy sr back-off)
 
 
 def _split_evidence_columnar(
@@ -551,18 +344,4 @@ def _split_evidence_columnar(
             prob1=prob.copy(), tid2=t2, strand2=ss2, start2=b2 - _SLOP,
             prob2=prob.copy(), weight=1, sample=si, is_split=True,
         ))
-    return out
-
-
-def _collect_evidence_columnar(
-    disc_paths: List[str],
-    split_paths: List[str],
-    stats: List[InsertStats],
-    exclude: Optional[ExcludeMask],
-) -> List[Breakpoint]:
-    out: List[Breakpoint] = []
-    for si, path in enumerate(disc_paths):
-        out.extend(_pair_evidence_columnar(path, stats[si], si, exclude))
-    for si, path in enumerate(split_paths):
-        out.extend(_split_evidence_columnar(path, stats[si], si, exclude))
     return out

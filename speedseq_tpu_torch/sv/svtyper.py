@@ -8,8 +8,7 @@ aligner epilogue writes (README.md:170).
 
 All calls of a sample are genotyped by one device program per R tier
 (sv/device.py ``svtyper_program``) over the whole BAM decoded once into
-sorted record columns.  The native codec is required: a missing codec or
-a decode error raises.
+sorted record columns by the native codec; a decode error raises.
 """
 
 from __future__ import annotations
@@ -189,16 +188,11 @@ class SVGenotyper:
             return self._cols_cache
 
     def _decode(self):
-        from .. import native
         from .columnar import (
             clip_flags, end_positions, mate_ref_lengths, read_bam_columns,
             ztag_strings,
         )
 
-        if not native.available():
-            raise RuntimeError(
-                "sv genotyping needs the native BAM codec, which did not "
-                "build or load")
         _refs, cols = read_bam_columns(self._path)
         flags = cols.flag.astype(np.int64)
         pos = cols.pos.astype(np.int64)

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from ..formats import bai as bai_mod
 from ..formats import tabix as tabix_mod
@@ -42,7 +43,7 @@ from ..formats.fasta import FastaFile
 from ..formats.vcf import VCFHeader, VCFWriter
 from ..formats.vcf_filter import compile_filter
 from .caller import CallerConfig, DeviceError, site_to_vcf
-from .pileup import build_pileup, build_pileup_columns
+from .pileup import build_pileup_columns
 
 # Windows are genotyped in batches of about this many compacted (site,
 # read) cells (a batch closes with the window that crosses it): one device
@@ -88,25 +89,6 @@ def _sample_map(readers: List[BAMReader], paths: List[str]):
     return samples, rg_to_sample, default_sample
 
 
-def _fetch_window(
-    rd: BAMReader, idx, tid: int, start: int, end: int
-) -> List:
-    """Region fetch via the BAI (hts_itr_query equivalent)."""
-    out = []
-    chunks = bai_mod.query_chunks(idx, tid, start, end)
-    for cb, ce in chunks:
-        rd.seek_virtual(cb)
-        while rd._r.tell_virtual < ce:
-            rec = rd.read_record()
-            if rec is None:
-                break
-            if rec.tid != tid or rec.pos >= end:
-                break
-            if rec.end_pos() > start:
-                out.append(rec)
-    return out
-
-
 def _fetch_window_raw(
     rd: BAMReader, idx, tid: int, start: int, end: int
 ) -> bytes:
@@ -120,8 +102,6 @@ def _concat_cols(parts):
     """Concatenate decoded BamColumns batches (offsets rebased)."""
     if len(parts) == 1:
         return parts[0]
-    from .. import native
-
     kw = {}
     for f in ("tid", "pos", "ref_end", "mapq", "flag", "mtid", "mpos",
               "tlen"):
@@ -283,10 +263,10 @@ def run_var(
                 genome_cache[chrom] = fa.fetch_encoded(chrom)
             return genome_cache[chrom]
 
-    # columnar fetch path: raw bytes → native decode → vectorized pileup
-    # (falls back to the SAMRecord path when the native codec is absent)
-    from .. import native as _native
-    use_columnar = _native.available()
+    # raw bytes → native decode → vectorized pileup.  A window's host
+    # failure is contained below, so the runtime loads here: without it
+    # the run fails instead of calling every window empty
+    native.load()
 
     from .caller import finish_window, genotype_windows, prepare_window
     from ..utils.metrics import metrics
@@ -294,42 +274,26 @@ def run_var(
     def _pileup(w: BedInterval):
         """The window's reads (all BAMs) as a pileup; None without reads."""
         tid = ref_names.index(w.chrom)
-        if use_columnar:
-            parts, sids = [], []
-            for bi, rd in enumerate(_readers()):
-                with metrics.timer("var.fetch"):
-                    blob = _fetch_window_raw(rd, indexes[bi], tid, w.start,
-                                             w.end)
-                if not blob:
-                    continue
-                metrics.add("var.fetch_bytes", len(blob))
-                with metrics.timer("var.decode"):
-                    c = _native.bam_decode(blob)
-                    parts.append(c)
-                    sids.append(_columnar_sample_ids(c, bi, rg_map,
-                                                     default_map))
-            if not parts:
-                return None
-            with metrics.timer("var.columns"):
-                return build_pileup_columns(
-                    _concat_cols(parts), np.concatenate(sids), w.start,
-                    w.end, min_mapq=cfg.caller.min_mapq,
-                    min_baseq=cfg.caller.min_baseq, tid=tid,
-                )
-        else:
-            recs = []
-            for bi, rd in enumerate(_readers()):
-                for rec in _fetch_window(rd, indexes[bi], tid, w.start,
-                                         w.end):
-                    rg = rec.get_tag("RG") or ""
-                    si = rg_map.get((bi, rg), default_map.get(bi, 0))
-                    recs.append((rec, si))
-            if not recs:
-                return None
-            return build_pileup(
-                recs, w.start, w.end,
-                min_mapq=cfg.caller.min_mapq,
-                min_baseq=cfg.caller.min_baseq,
+        parts, sids = [], []
+        for bi, rd in enumerate(_readers()):
+            with metrics.timer("var.fetch"):
+                blob = _fetch_window_raw(rd, indexes[bi], tid, w.start,
+                                         w.end)
+            if not blob:
+                continue
+            metrics.add("var.fetch_bytes", len(blob))
+            with metrics.timer("var.decode"):
+                c = native.bam_decode(blob)
+                parts.append(c)
+                sids.append(_columnar_sample_ids(c, bi, rg_map,
+                                                 default_map))
+        if not parts:
+            return None
+        with metrics.timer("var.columns"):
+            return build_pileup_columns(
+                _concat_cols(parts), np.concatenate(sids), w.start,
+                w.end, min_mapq=cfg.caller.min_mapq,
+                min_baseq=cfg.caller.min_baseq, tid=tid,
             )
 
     def _prep_window(item: Tuple[int, BedInterval]):

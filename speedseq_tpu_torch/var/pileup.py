@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..formats.sam import FDUP, FSECONDARY, FSUPPLEMENTARY, FUNMAP, SAMRecord
 from ..formats.fasta import encode_bases
 
@@ -264,7 +265,6 @@ def build_pileup(
 
 _CIG_QCONSUME = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1, 0], bool)  # M I S = X
 _CIG_RCONSUME = np.array([1, 0, 1, 1, 0, 0, 0, 1, 1, 0], bool)  # M D N = X
-_CIG_ALIGNED = np.array([1, 0, 0, 0, 0, 0, 0, 1, 1, 0], bool)   # M = X
 
 
 def build_pileup_columns(
@@ -278,11 +278,12 @@ def build_pileup_columns(
 ) -> WindowPileup:
     """Columnar pileup: the vectorized twin of build_pileup.
 
-    Operates on native-decoded record columns (csrc ssq_bam_decode) —
-    cigar expansion, window projection, and count accumulation are all
-    whole-batch numpy ops; no per-read Python.  Produces a WindowPileup
-    identical in content to the record path (same filters, same span
-    layout), minus the SAMRecord list (reads=[])."""
+    Operates on native-decoded record columns (csrc ssq_bam_decode): the
+    cigar op table and the read filters are whole-batch numpy ops, and the
+    aligned bases' expansion into the span layout and the counts is one
+    native pass (csrc ssq_pileup_expand); no per-read Python.  Produces a
+    WindowPileup identical in content to the record path (same filters,
+    same span layout), minus the SAMRecord list (reads=[])."""
     L = end - start
     n = cols.n
     flags = cols.flag.astype(np.int64)
@@ -349,70 +350,21 @@ def build_pileup_columns(
     flat_rpos = np.full(total, -1, np.int32)
 
     # ---- expand aligned (M/=/X) ops into per-base entries ---------------
-    # native one-pass expansion when available (the numpy version below
-    # is ~15 O(bases) passes with GIL-bound scatters — it was the
-    # var/somatic host bottleneck at deep-coverage window sizes)
-    from .. import native as _nat
-
-    if _nat.available():
-        _nat.pileup_expand(
-            np.ascontiguousarray(cols.pos[kidx].astype(np.int64)),
-            np.ascontiguousarray(cols.seq_off[:-1][kidx].astype(np.int64)),
-            np.ascontiguousarray(cols.seq_blob, np.uint8),
-            np.ascontiguousarray(cols.qual_blob, np.uint8),
-            np.ascontiguousarray(cols.cigar_blob, np.uint32),
-            np.ascontiguousarray(cols.cigar_off[:-1][kidx].astype(np.int64)),
-            np.ascontiguousarray(cols.cigar_off[1:][kidx].astype(np.int64)),
-            np.ascontiguousarray(rstart), np.ascontiguousarray(base_idx),
-            np.ascontiguousarray(strand, np.int8),
-            int(start), int(end), int(min_baseq),
-            flat_proj, flat_qual, flat_rpos,
-            base_counts, qual_sums, strand_counts)
-        oi = np.zeros(0, np.int64)
-    else:
-        op_keep = _CIG_ALIGNED[opc] & (new_id[rid_op] >= 0)
-        oi = np.nonzero(op_keep)[0]
-    if len(oi):
-        a = np.maximum(r_start[oi], start)
-        b = np.minimum(r_start[oi] + lens[oi], end)
-        cnt = np.maximum(b - a, 0)
-        keep_op = cnt > 0
-        oi, a, cnt = oi[keep_op], a[keep_op], cnt[keep_op]
-        tot = int(cnt.sum())
-        if tot:
-            starts_out = np.zeros(len(oi), np.int64)
-            np.cumsum(cnt[:-1], out=starts_out[1:])
-            eidx = np.arange(tot, dtype=np.int64) - np.repeat(starts_out, cnt)
-            erid = np.repeat(new_id[rid_op[oi]], cnt)          # pileup row
-            ecol = np.repeat(a, cnt) + eidx - start            # window offset
-            erpos = np.repeat(q_start[oi] + (a - r_start[oi]), cnt) + eidx
-            eseq = np.repeat(cols.seq_off[:-1][rid_op[oi]], cnt) + erpos
-            ebase = np.minimum(seq_codes[eseq], 4).astype(np.int8)
-            equal = np.minimum(cols.qual_blob[eseq], 60).astype(np.int8)
-            # 0xff qual blob means "*" (no quals): freebayes treats as q30
-            equal = np.where(cols.qual_blob[eseq] == 0xFF, np.int8(30), equal)
-            good = equal >= min_baseq
-            # scatter into the span layout (deletion gaps stay -1); qual
-            # is kept for ALL aligned bases (the record path leaves the
-            # raw qual in place when a low-qual base is masked to -1)
-            di = base_idx[erid] + (ecol - rstart[erid])
-            flat_rpos[di] = erpos.astype(np.int32)
-            flat_qual[di] = equal
-            flat_proj[di[good]] = ebase[good]
-            # counts (only ≥min_baseq bases, matching build_pileup) —
-            # bincount over fused indices (~10× np.add.at)
-            gcol = ecol[good].astype(np.int64)
-            gbase = ebase[good].astype(np.int64)
-            fi = gcol * 5 + gbase
-            base_counts += np.bincount(fi, minlength=L * 5).reshape(
-                L, 5).astype(np.int32)
-            qual_sums += np.bincount(
-                fi, weights=equal[good].astype(np.float64),
-                minlength=L * 5).reshape(L, 5).astype(np.int32)
-            gs = strand[erid[good]].astype(np.int64)
-            strand_counts += np.bincount(
-                fi * 2 + gs, minlength=L * 10).reshape(L, 5, 2
-                                                       ).astype(np.int32)
+    # one native pass (ssq_pileup_expand): fills the span layout and the
+    # count matrices in place
+    native.pileup_expand(
+        np.ascontiguousarray(cols.pos[kidx].astype(np.int64)),
+        np.ascontiguousarray(cols.seq_off[:-1][kidx].astype(np.int64)),
+        np.ascontiguousarray(cols.seq_blob, np.uint8),
+        np.ascontiguousarray(cols.qual_blob, np.uint8),
+        np.ascontiguousarray(cols.cigar_blob, np.uint32),
+        np.ascontiguousarray(cols.cigar_off[:-1][kidx].astype(np.int64)),
+        np.ascontiguousarray(cols.cigar_off[1:][kidx].astype(np.int64)),
+        np.ascontiguousarray(rstart), np.ascontiguousarray(base_idx),
+        np.ascontiguousarray(strand, np.int8),
+        int(start), int(end), int(min_baseq),
+        flat_proj, flat_qual, flat_rpos,
+        base_counts, qual_sums, strand_counts)
 
     # ---- indel events (I/D ops anchored at the base before) -------------
     events: List[ReadEvent] = []

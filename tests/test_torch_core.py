@@ -91,8 +91,9 @@ def phase1(setup):
     s = setup
     jsc = [jcore.weight_candidates(s["jf"], s["j"][2 * e], s["j"][2 * e + 1],
                                    kidx=s["jk"]) for e in (0, 1)]
-    tsc = [tcore.weight_candidates(s["tf"], s["t"][2 * e], s["t"][2 * e + 1],
-                                   kidx=s["tk"]) for e in (0, 1)]
+    tsc = tcore.weight_candidates(
+        s["tf"], [(s["t"][0], s["t"][1]), (s["t"][2], s["t"][3])],
+        kidx=s["tk"])
     return jsc, tsc
 
 
@@ -102,19 +103,6 @@ def test_weight_candidates_bit_equal(phase1):
         for name in j._fields:
             _eq(getattr(j, name), getattr(t, name), name)
     assert (np.asarray(jsc[1].score).max(1) <= 0).any()  # seed-killed ends
-
-
-def test_score_candidates_bit_equal(setup):
-    """score_mode="sw" phase 1: the score kernel over all K chains."""
-    s = setup
-    for e in (0, 1):
-        j = jcore.score_candidates(s["jf"], s["j"][2 * e], s["j"][2 * e + 1],
-                                   use_pallas=True, kidx=s["jk"])
-        t = tcore.score_candidates(s["tf"], s["t"][2 * e], s["t"][2 * e + 1],
-                                   kidx=s["tk"])
-        for name in j._fields:
-            _eq(getattr(j, name), getattr(t, name), name)
-        assert (np.asarray(j.score) > 0).any()
 
 
 def test_pair_select_and_choose_bit_equal(setup, phase1):

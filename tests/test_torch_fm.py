@@ -613,8 +613,8 @@ def test_weight_candidates_fm_branch(index, batch):
     reads, lens = batch
     want = jcore.weight_candidates(index["J"], jnp.asarray(reads),
                                    jnp.asarray(lens), kidx=None)
-    got = tcore.weight_candidates(index["T"], torch.from_numpy(reads),
-                                  torch.from_numpy(lens), kidx=None)
+    (got,) = tcore.weight_candidates(
+        index["T"], [(torch.from_numpy(reads), torch.from_numpy(lens))])
     assert all(_eq(a, b) for a, b in zip(want, got))
 
 

@@ -95,8 +95,9 @@ def test_score_kernel_matches_twin(n, Lq):
          "no-int8-table"])
 def test_score_kernel_matches_twin_at_path_shapes(n, Lq, Lr, params):
     """The main path's rescue shape (a 254-column window padded to 256),
-    a window width that is no multiple of 4, score_mode="sw" phase 1's
-    lane count, and scores that do not fit the kernel's int8 table."""
+    a window width that is no multiple of 4, 32,768 lanes (every chain of
+    an 8,192-read batch end), and scores that do not fit the kernel's int8
+    table."""
     _need_card()
     q, ql, r = (torch.from_numpy(a).cuda()
                 for a in sw_edge_cases(n, Lq, Lr, seed=n + Lr))
@@ -1392,12 +1393,12 @@ def test_seed_chain_makes_no_host_sync(seed_world):
     ck = _on_card(kidx)
     ends = [tuple(torch.from_numpy(a).cuda()
                   for a in cases.reads(g, 1024, 151, seed=e)) for e in (0, 1)]
-    core._hash_weight_candidates(ck, ends, 4, 8, 19, 4)   # builds the library
+    core.weight_candidates(None, ends, ck)   # builds the library
     torch.cuda.synchronize()
     before = sc.LAUNCHES["seed_chain"]
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = core._hash_weight_candidates(ck, ends, 4, 8, 19, 4)
+        got = core.weight_candidates(None, ends, ck)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert sc.LAUNCHES["seed_chain"] == before + 1
@@ -1425,11 +1426,10 @@ def test_seed_chain_kernel_refuses_what_it_cannot_take(seed_world):
         sc.seed_chain(ck, [(r, ln.cpu())])
 
 
-@pytest.mark.parametrize("score_mode", ["weight", "sw"])
-def test_step_scored_chains_cuda_matches_cpu(mesh_world, score_mode):
+def test_step_scored_chains_cuda_matches_cpu(mesh_world):
     """fused_align_step on 256 pairs: each end's ScoredChains equal on
-    cuda and cpu; weight mode launches seed_chain once a step for both
-    ends (``align.seed_chain.kernel_reads`` + 512), sw mode once an end."""
+    cuda and cpu; seed_chain launches once a step for both ends
+    (``align.seed_chain.kernel_reads`` + 512)."""
     _need_card()
     from speedseq_tpu_torch.align import core
     from speedseq_tpu_torch.align.pipeline import _load_fm
@@ -1447,13 +1447,12 @@ def test_step_scored_chains_cuda_matches_cpu(mesh_world, score_mode):
         args = [t.to(dev) for t in (pad(rd.seq1), ln, pad(rd.seq2), ln)]
         before = sc.LAUNCHES["seed_chain"]
         reads0 = metrics.snapshot().get("align.seed_chain.kernel_reads", 0)
-        res[dev] = core.fused_align_step(fm, *args, kidx=kidx,
-                                         score_mode=score_mode)
+        res[dev] = core.fused_align_step(fm, *args, kidx=kidx)
         torch.cuda.synchronize()
         n = metrics.snapshot().get("align.seed_chain.kernel_reads", 0)
         launches = sc.LAUNCHES["seed_chain"] - before
         if dev == "cuda":
-            assert launches == (1 if score_mode == "weight" else 2)
+            assert launches == 1
             assert n - reads0 == 2 * B
         else:
             assert launches == 0 and n == reads0
